@@ -42,7 +42,10 @@ ROOT = Path(__file__).resolve().parent
 F32_PEAK = 67e12      # H100 SXM float32 FLOP/s outside the tensor cores
 HBM_RATE = 3.35e12    # H100 SXM device-memory bytes/s
 TOL_KERNEL = 1e-4
-TOL_CPU = 1e-3
+# card vs CPU waveform: max abs err <= TOL_CPU_REL * max|wav|; the random
+# weights give a waveform of ~1e-2 amplitude, so an absolute limit would
+# hide a fault of a few percent
+TOL_CPU_REL = 1e-4
 VOCABS = (60, 117, 98)   # as bench.py's synthesis benchmark
 
 
@@ -79,6 +82,39 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
                                        else "bytes")
 
 
+def k1_work(lengths, t, c, heads, window) -> tuple[float, float]:
+    """Flops and bytes K1's function needs for these lengths.  A valid row
+    gives a key at or past its item's length exp(-1e4 - max) = 0 weight, so
+    it needs only len keys; every masked row is the same uniform mean of v
+    (plus its band term), computed once per (item, head)."""
+    dk, nb = c // heads, 2 * window + 1
+    flops = nbytes = 0
+    for n in lengths:
+        flops += heads * (4 * dk * n * n + 4 * nb * dk * n
+                          + (dk * (t + nb) if n < t else 0))
+        nbytes += 4 * c * (2 * n + 2 * t)   # q, k: n rows; v, out: t rows
+    return flops, nbytes + 4 * 2 * nb * dk + 4 * len(lengths)
+
+
+def k2_work(lengths, t, c, n_layers, k) -> tuple[float, float]:
+    """Flops and bytes K2's function needs for these lengths.  Layer 0
+    reads x at every frame; later layers read h, which the stack zeroes at
+    or past each item's length, so only len + K//2 frames differ and the
+    rest share one value.  The last layer's 1x1 is C -> C (skip half only)."""
+    flops = 0
+    for n in lengths:
+        live = min(t, n + k // 2) + (1 if n + k // 2 < t else 0)
+        for i in range(n_layers):
+            per_frame = k * c * 2 * c + (c * c if i == n_layers - 1
+                                         else c * 2 * c)
+            flops += 2 * (t if i == 0 else live) * per_frame
+    b = len(lengths)
+    weights = (n_layers * k * c * 2 * c + (n_layers - 1) * c * 2 * c + c * c
+               + n_layers * 2 * c + (n_layers - 1) * 2 * c + c)
+    nbytes = 4 * (2 * b * t * c + b * t + weights + b * n_layers * 2 * c)
+    return flops, nbytes
+
+
 def ragged_mask(torch, lengths, t, dev):
     """[B, T, 1] float prefix mask."""
     from visinger_tpu_torch.ops.masking import sequence_mask
@@ -111,10 +147,7 @@ def check_rel_attention(torch, ra, dev):
                                                           **kw))
         plain_ms = time_ms(torch, lambda: ra.rel_attention_plain(
             q, k, v, ek, ev, lens, **kw))
-        nb = 2 * window + 1
-        flops = 4 * heads * (4 * t * t * dk + 4 * t * nb * dk)
-        # q, k, v and out [4, t, c], the two tables, the int32 lengths
-        nbytes = 4 * (4 * 4 * t * c + 2 * nb * dk) + 4 * 4
+        flops, nbytes = k1_work(lengths, t, c, heads, window)
         b_ms, b_by = bound_ms(flops, nbytes)
         row = {"shape": f"[4, {t}, {c}] {label}", "max_abs_err": err,
                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -132,7 +165,8 @@ def check_wavenet_stack(torch, ws, dev):
     def u(*shape, bound):
         return (torch.rand(*shape, generator=gen) * 2 - 1).mul(bound).to(dev)
 
-    mask = ragged_mask(torch, [640, 600, 517, 333], t, dev)
+    lengths = [640, 600, 517, 333]
+    mask = ragged_mask(torch, lengths, t, dev)
     x = torch.randn(b, t, c, generator=gen).to(dev) * mask
     w_in = u(n_layers, k, c, 2 * c, bound=(k * c) ** -0.5)
     b_in = u(n_layers, 2 * c, bound=(k * c) ** -0.5)
@@ -148,9 +182,7 @@ def check_wavenet_stack(torch, ws, dev):
     check(err <= TOL_KERNEL, f"K2: max abs err {err} > {TOL_KERNEL}")
     ms = time_ms(torch, lambda: ws.wavenet_stack_fwd(*args))
     plain_ms = time_ms(torch, lambda: ws.wavenet_stack_plain(*args))
-    flops = 2 * b * t * n_layers * (k * c * 2 * c + c * 2 * c)
-    nbytes = 4 * (2 * b * t * c + b * t + n_layers * (k + 1) * c * 2 * c
-                  + 2 * n_layers * 2 * c + b * n_layers * 2 * c)
+    flops, nbytes = k2_work(lengths, t, c, n_layers, k)
     b_ms, b_by = bound_ms(flops, nbytes)
     row = {"shape": f"x [{b}, {t}, {c}] L={n_layers} K={k}",
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -242,10 +274,13 @@ def synthesis(torch, ra, ws, dev, profile: bool):
             wavs[name] = model.decode_frames(z_p, mask,
                                              spk_id=t["spk_ids"]).cpu()
     err = float((wavs["cuda"] - wavs["cpu"]).abs().max())
+    peak = float(wavs["cpu"].abs().max())
+    tol = TOL_CPU_REL * peak
     check(bool(torch.isfinite(wavs["cuda"]).all()), "short request non-finite")
-    check(err <= TOL_CPU, f"card vs CPU wav max abs err {err} > {TOL_CPU}")
+    check(peak > 0, "short request silent")
+    check(err <= tol, f"card vs CPU wav max abs err {err} > {tol}")
     phase("card_vs_cpu", shape=list(wavs["cuda"].shape), max_abs_err=err,
-          tol=TOL_CPU, wav_abs_max=float(wavs["cpu"].abs().max()))
+          tol=tol, wav_abs_max=peak)
     return counts
 
 

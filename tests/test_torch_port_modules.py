@@ -50,6 +50,44 @@ def perturb_g(params, seed=0):
     return params
 
 
+def fill_params(shapes, seed):
+    """Random values for a JAX param tree of ShapeDtypeStructs.  Weight-norm
+    g is drawn away from ||v|| and every ``post`` is nonzero, so neither the
+    norm axis nor the flow can hide a fault."""
+    rng = np.random.RandomState(seed)
+
+    def fill(node):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                out[k] = fill(v)
+                continue
+            shape = v.shape
+            if k == "kernel":
+                bound = float(np.prod(shape[:-1])) ** -0.5
+                out[k] = rng.uniform(-bound, bound, shape)
+            elif k == "bias":
+                out[k] = rng.uniform(-0.1, 0.1, shape)
+            elif k == "embedding":
+                out[k] = rng.randn(*shape) * 0.3
+            elif k == "gamma":
+                out[k] = 1.0 + 0.1 * rng.randn(*shape)
+            elif k in ("beta",):
+                out[k] = 0.1 * rng.randn(*shape)
+            elif k.startswith("emb_rel"):
+                out[k] = rng.randn(*shape) * shape[1] ** -0.5
+            elif k != "g":
+                raise KeyError(k)
+        if "g" in node:
+            v = out["kernel"]
+            norm = np.sqrt(np.sum(v * v, axis=tuple(range(v.ndim - 1))))
+            out["g"] = norm * rng.uniform(0.5, 1.5, norm.shape)
+        return {k: (v.astype(np.float32) if isinstance(v, np.ndarray) else v)
+                for k, v in out.items()}
+
+    return fill(shapes)
+
+
 def max_err(a, b):
     return float(np.max(np.abs(np.asarray(a, np.float64)
                                - np.asarray(b, np.float64))))
@@ -145,8 +183,9 @@ def test_text_encoder_with_scrambled_positions():
     mel2ph[1, :18] = np.repeat(np.arange(1, 7), 3)
     jenc = JTextEncoder(20, 20, 20, h, 32, 2, 2, 3, 0.0, attn_impl="legacy")
     jargs = [jnp.asarray(a) for a in (*tok, mel2ph)]
-    params = jenc.init(jax.random.PRNGKey(0), *jargs)["params"]
-    ref = jenc.apply({"params": params}, *jargs)
+    shapes = jax.eval_shape(jenc.init, jax.random.PRNGKey(0), *jargs)
+    params = fill_params(shapes["params"], 5)
+    ref = jax.jit(jenc.apply)({"params": params}, *jargs)
     port = load_port(TextEncoder(20, 20, 20, h, 32, 2, 2, 3), params)
     out = port(*(torch.from_numpy(a).long() for a in (*tok, mel2ph)))
     assert max_err(out.detach(), ref) < ATOL
@@ -162,9 +201,11 @@ def test_hifigan_tiny_width():
     x = rng.randn(1, 6, 16).astype(np.float32)
     g = rng.randn(1, 1, 8).astype(np.float32)
     jgen = JHiFiGAN(upsample_initial_channel=32, gin_channels=8)
-    params = jgen.init(jax.random.PRNGKey(0), jnp.asarray(x),
-                       jnp.asarray(g))["params"]
-    ref = jgen.apply({"params": params}, jnp.asarray(x), jnp.asarray(g))
+    jargs = (jnp.asarray(x), jnp.asarray(g))
+    # traced, not run: linen's eager init of ~60 convolutions takes seconds
+    shapes = jax.eval_shape(jgen.init, jax.random.PRNGKey(0), *jargs)
+    params = fill_params(shapes["params"], 6)
+    ref = jax.jit(jgen.apply)({"params": params}, *jargs)
     port = load_port(HiFiGANGenerator(16, upsample_initial_channel=32,
                                       gin_channels=8), params, path="decoder")
     out = port(bct(x), bct(g)).detach()

@@ -4,11 +4,14 @@ noise eps (numpy) go through ``infer_prior`` / ``decode_frames`` /
 ``TorchSynthesizer`` and the JAX model's infer path.
 
 Tolerances (float32): 1e-4 max abs on mu_p / logs_p / z_p (three
-transformer stacks, the same arithmetic summed in another order); 1e-3 on
-the waveform (the flow and ~60 HiFi-GAN convolutions in a chain).  The
-voiced flag (uv logit <= 0) is discontinuous, so it is asserted equal
-outright: with this seed no logit lies within rounding of 0."""
+transformer stacks, the same arithmetic summed in another order); on the
+waveform (the flow and ~60 HiFi-GAN convolutions in a chain) 1e-4 of its
+peak, which the random weights put at ~1e-2 to ~1e-1 (measured error
+~1e-6 of the peak).  The voiced flag (uv logit <= 0) is discontinuous, so
+it is asserted equal outright: with this seed no logit lies within
+rounding of 0."""
 
+import functools
 import os
 import re
 import subprocess
@@ -31,48 +34,14 @@ from visinger_tpu_torch.data.synthetic import synthetic_batch
 from visinger_tpu_torch.infer.infer import TorchSynthesizer
 from visinger_tpu_torch.models.factory import build_model
 
+from test_torch_port_modules import fill_params
+
 VOCABS = (20, 30, 25)
 B, N, T = 2, 12, 48
 SEED = 0
+WAV_RTOL = 1e-4   # waveform max abs err, as a share of the reference's peak
 REPO = Path(__file__).resolve().parents[1]
-
-
-def fill_params(shapes, seed):
-    """Random values for a JAX param tree of ShapeDtypeStructs.  Weight-norm
-    g is drawn away from ||v|| and every ``post`` is nonzero, so neither the
-    norm axis nor the flow can hide a fault."""
-    rng = np.random.RandomState(seed)
-
-    def fill(node):
-        out = {}
-        for k, v in node.items():
-            if isinstance(v, dict):
-                out[k] = fill(v)
-                continue
-            shape = v.shape
-            if k == "kernel":
-                bound = float(np.prod(shape[:-1])) ** -0.5
-                out[k] = rng.uniform(-bound, bound, shape)
-            elif k == "bias":
-                out[k] = rng.uniform(-0.1, 0.1, shape)
-            elif k == "embedding":
-                out[k] = rng.randn(*shape) * 0.3
-            elif k == "gamma":
-                out[k] = 1.0 + 0.1 * rng.randn(*shape)
-            elif k in ("beta",):
-                out[k] = 0.1 * rng.randn(*shape)
-            elif k.startswith("emb_rel"):
-                out[k] = rng.randn(*shape) * shape[1] ** -0.5
-            elif k != "g":
-                raise KeyError(k)
-        if "g" in node:
-            v = out["kernel"]
-            norm = np.sqrt(np.sum(v * v, axis=tuple(range(v.ndim - 1))))
-            out["g"] = norm * rng.uniform(0.5, 1.5, norm.shape)
-        return {k: (v.astype(np.float32) if isinstance(v, np.ndarray) else v)
-                for k, v in out.items()}
-
-    return fill(shapes)
+TRAIN_ONLY = ("posterior_encoder", "phoneme_predictor")
 
 
 def jax_inputs(raw, n=None, t=None):
@@ -102,20 +71,24 @@ def slice_pair():
     params = fill_params(shapes["params"], SEED)
     port = build_model(tiny_config(), *VOCABS, device="cpu")
     port.load_state_dict(params_from_jax(params), strict=True)
-    return jmodel, params, port, raw
+    # jitted applies for every prior and decode below: linen run eagerly
+    # dispatches (and compiles) op by op, several times slower at this size
+    apply = jax.jit(jmodel.apply, static_argnames=("infer",))
+    decode = jax.jit(functools.partial(jmodel.apply,
+                                       method=JVISinger.decode_frames))
+    return apply, decode, params, port, raw
 
 
-def jax_prior(jmodel, params, inputs):
-    out = jmodel.apply({"params": params}, **inputs, infer=True,
-                       rngs={"sample": jax.random.PRNGKey(1)})
+def jax_prior(apply, params, inputs):
+    out = apply({"params": params}, **inputs, infer=True,
+                rngs={"sample": jax.random.PRNGKey(1)})
     return {k: np.asarray(out[k]) for k in ("mu_p", "logs_p", "f0_pred")}
 
 
-def jax_decode(jmodel, params, z_p, mel2ph, spk_id):
+def jax_decode(decode, params, z_p, mel2ph, spk_id):
     mask = (np.asarray(mel2ph) > 0).astype(np.float32)[..., None]
-    return np.asarray(jmodel.apply(
-        {"params": params}, jnp.asarray(z_p), jnp.asarray(mask),
-        spk_id=spk_id, method=JVISinger.decode_frames))
+    return np.asarray(decode({"params": params}, jnp.asarray(z_p),
+                             jnp.asarray(mask), spk_id=spk_id))
 
 
 def max_err(a, b):
@@ -132,8 +105,8 @@ def test_synthetic_batch_is_the_jax_copy():
 
 
 def test_infer_prior_matches_jax(slice_pair):
-    jmodel, params, port, raw = slice_pair
-    ref = jax_prior(jmodel, params, jax_inputs(raw))
+    apply, _, params, port, raw = slice_pair
+    ref = jax_prior(apply, params, jax_inputs(raw))
     eps = np.random.RandomState(11).randn(*ref["mu_p"].shape).astype(
         np.float32)
     with torch.no_grad():
@@ -152,22 +125,23 @@ def test_infer_prior_matches_jax(slice_pair):
 
 
 def test_decode_frames_matches_jax(slice_pair):
-    jmodel, params, port, raw = slice_pair
+    _, decode, params, port, raw = slice_pair
     rng = np.random.RandomState(12)
     tgt = (raw["mel2ph"] > 0).astype(np.float32)[..., None]
     z_p = rng.randn(B, T, 16).astype(np.float32) * tgt
-    ref = jax_decode(jmodel, params, z_p, raw["mel2ph"],
+    ref = jax_decode(decode, params, z_p, raw["mel2ph"],
                      jnp.asarray(raw["spk_ids"]))
     with torch.no_grad():
         wav = port.decode_frames(torch.from_numpy(z_p), torch.from_numpy(tgt),
                                  spk_id=torch.from_numpy(raw["spk_ids"]).long())
     assert wav.shape == (B, T * 300)
-    assert max_err(wav, ref) < 1e-3
-    assert float(np.abs(ref).max()) > 1e-2  # the comparison is not vacuous
+    peak = float(np.abs(ref).max())
+    assert peak > 1e-2  # the comparison is not vacuous
+    assert max_err(wav, ref) < WAV_RTOL * peak
 
 
 def test_forward_infer_is_prior_then_decode(slice_pair):
-    _, _, port, raw = slice_pair
+    port, raw = slice_pair[-2:]
     eps = torch.from_numpy(np.random.RandomState(13).randn(B, T, 16).astype(
         np.float32))
     with torch.no_grad():
@@ -183,7 +157,7 @@ def test_synthesizer_two_requests_match_jax(slice_pair):
     """Two requests of different lengths in one group: each wav is trimmed
     to its own frames and equals the JAX model on the batch padded to the
     group's longest item with the same eps."""
-    jmodel, params, port, raw = slice_pair
+    apply, decode, params, port, _ = slice_pair
     raw = synthetic_batch(B, N, T, *VOCABS, seed=SEED + 1)
     n_len, t_len = raw["text_lengths"], raw["mel_lengths"]
     assert n_len[0] != n_len[1] and t_len[0] != t_len[1]
@@ -193,38 +167,44 @@ def test_synthesizer_two_requests_match_jax(slice_pair):
                  "mel2ph": raw["mel2ph"][i:i + 1, :t_len[i]],
                  "spk_ids": raw["spk_ids"][i:i + 1]} for i in range(B)]
     synth = TorchSynthesizer(tiny_config(), port, device="cpu")
-    res = synth.synthesize_batch(requests, seed=5, max_sentences=2)
+    res = synth.synthesize_batch(requests, seed=5)
 
     n_max, t_max = int(n_len.max()), int(t_len.max())
     inputs = jax_inputs(raw, n_max, t_max)
-    ref = jax_prior(jmodel, params, inputs)
+    ref = jax_prior(apply, params, inputs)
     eps = torch.randn((B, t_max, 16),
                       generator=torch.Generator().manual_seed(5)).numpy()
     tgt = (raw["mel2ph"][:, :t_max] > 0).astype(np.float32)[..., None]
     z_p = (ref["mu_p"] + eps * np.exp(ref["logs_p"])) * tgt
-    wav_ref = jax_decode(jmodel, params, z_p, raw["mel2ph"][:, :t_max],
+    wav_ref = jax_decode(decode, params, z_p, raw["mel2ph"][:, :t_max],
                          inputs["spk_id"])
     assert len(res.wavs) == B and len(res.group_seconds) == 1
     for i in range(B):
+        ref_i = wav_ref[i, :t_len[i] * 300]
+        peak = float(np.abs(ref_i).max())
+        assert peak > 1e-2  # the comparison is not vacuous
         assert res.wavs[i].shape == (t_len[i] * 300,)
-        assert max_err(res.wavs[i], wav_ref[i, :t_len[i] * 300]) < 1e-3
+        assert max_err(res.wavs[i], ref_i) < WAV_RTOL * peak
     assert res.rtf > 0
 
 
-def test_jax_init_params_tree_converts():
-    """The JAX package's own initialisation (``factory.init_params``, train
-    branch included) converts: the training-only subtrees are skipped by
-    name and everything else loads strictly, giving the same prior."""
+def test_jax_init_params_tree_converts(slice_pair):
+    """The tree the JAX package's own initialisation builds
+    (``factory.init_params``, train branch included; traced, not compiled,
+    and filled from a seed) converts: the training-only subtrees are skipped
+    by name and everything else loads strictly, giving the same prior."""
+    apply = slice_pair[0]
     jcfg = jax_tiny_config()
     raw = jax_synthetic_batch(B, N, T, *VOCABS,
                               num_linear_bins=jcfg.num_linear_bins, seed=SEED)
     jmodel, disc = build_models(jcfg, *VOCABS)
-    params, _ = init_params(jcfg, jmodel, disc, raw)
-    params = jax.tree.map(np.asarray, params)
-    assert {"posterior_encoder", "phoneme_predictor"} <= set(params)
+    shapes = jax.eval_shape(lambda: init_params(jcfg, jmodel, disc, raw)[0])
+    params = fill_params(shapes, SEED + 2)
+    assert set(TRAIN_ONLY) <= set(params)
     port = build_model(tiny_config(), *VOCABS, device="cpu")
     port.load_state_dict(params_from_jax(params), strict=True)
-    ref = jax_prior(jmodel, params, jax_inputs(raw))
+    infer_params = {k: v for k, v in params.items() if k not in TRAIN_ONLY}
+    ref = jax_prior(apply, infer_params, jax_inputs(raw))
     with torch.no_grad():
         st = port.prior_stats(*port_inputs(raw))
     assert max_err(st["mu_p"], ref["mu_p"]) < 1e-4

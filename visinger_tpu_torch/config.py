@@ -52,10 +52,10 @@ def visinger_csd() -> Config:
     return Config()
 
 
-def tiny_config(**overrides) -> Config:
+def tiny_config() -> Config:
     """Unit-test size, the counterpart of the JAX ``models.factory.tiny_config``
     restricted to the fields above (all structure kept)."""
-    cfg = visinger_csd().replace(
+    return visinger_csd().replace(
         enc_layers=1,
         frame_prior_layers=1,
         pitch_predictor_layers=1,
@@ -67,4 +67,3 @@ def tiny_config(**overrides) -> Config:
         initial_upsample_channels=32,  # must exceed 2**len(upsample_rates)
         gin_channels=8,
     )
-    return cfg.replace(**overrides) if overrides else cfg

@@ -20,10 +20,12 @@
 // are recomputed after the key loop from the final row max and sum (a second
 // pass over 2w+1 keys per row, against T keys in the main pass).
 //
-// Bound on the H100: at the synthesis shapes (T <= 640, dk = 96) the work is
-// ~4 * B * H * T^2 * dk flops against a few MB of q/k/v traffic, so it is
-// bound by operations; this first version runs on the float32 CUDA cores
-// (no tensor cores, no TMA), which is the limit it is measured against.
+// Bound on the H100: at the synthesis shapes (T <= 640, dk = 96) the work the
+// function needs is ~4 * H * dk * sum_b len_b^2 flops (a key at or past len
+// gets exp(-1e4 - max) = 0, and every masked row is the same uniform mean of
+// v) against a few MB of q/k/v traffic, so it is bound by operations; this
+// first version runs on the float32 CUDA cores (no tensor cores, no TMA),
+// which is the limit it is measured against.
 
 #include <cuda_runtime.h>
 #include <math.h>

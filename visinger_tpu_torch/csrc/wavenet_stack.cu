@@ -28,10 +28,11 @@
 // C * ceil(R/16) threads (576 at C=192, tt=32, L=4) and enough warps to
 // hide the L2 latency of the weight reads.
 //
-// Bound on the H100: ~2*B*T*L*(K+1)*C*2C flops against ~1.5 MB of weights
-// per layer plus x/mask/out, so it is bound by operations; this first
-// version runs on the float32 CUDA cores (no tensor cores), the limit it is
-// measured against.
+// Bound on the H100: ~2*B*T*(L*(K+1)*C*2C - C*C) flops (the last layer's
+// 1x1 is C -> C; its residual half of w_rs is zero padding) against ~1.5 MB
+// of weights per layer plus x/mask/out, so it is bound by operations; this
+// first version runs on the float32 CUDA cores (no tensor cores), the limit
+// it is measured against.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -40,6 +41,8 @@ namespace {
 
 constexpr int RC = 16;           // frames per register tile
 constexpr int MAX_THREADS = 576;  // caps registers at 113 a thread
+constexpr int TILE_FRAMES = 32;   // centre frames per block: 80 blocks at
+                                  // B=4, T=640
 
 __global__ void __launch_bounds__(MAX_THREADS) wavenet_stack_fwd_kernel(
     const float* __restrict__ x, const float* __restrict__ mask,
@@ -154,10 +157,14 @@ extern "C" int wavenet_stack_fwd(const float* x, const float* mask,
                                  const float* w_in, const float* g_all,
                                  const float* w_rs, const float* b_rs,
                                  float* out, int B, int T, int C, int L, int K,
-                                 int tt, int threads, cudaStream_t stream) {
-  if (B <= 0 || T <= 0 || C <= 0 || L <= 0 || K <= 0 || K % 2 == 0 ||
-      tt <= 0 || threads <= 0 || threads > MAX_THREADS)
+                                 cudaStream_t stream) {
+  if (B <= 0 || T <= 0 || C <= 0 || L <= 0 || K <= 0 || K % 2 == 0)
     return (int)cudaErrorInvalidValue;
+  const int tt = TILE_FRAMES;
+  // x: one thread per output channel (whole warps, at most 256); y: as many
+  // 16-frame register tiles as MAX_THREADS leaves room for
+  const int cw = (C + 31) / 32 * 32;
+  const int threads = cw < 256 ? cw : 256;
   const int half = K / 2;
   const int R = tt + 2 * L * half;
   const int Rp = (R + RC - 1) / RC * RC;

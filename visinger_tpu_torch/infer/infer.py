@@ -72,16 +72,15 @@ class TorchSynthesizer:
             spk_id=t["spk_ids"], generator=generator)
         return self.model.decode_frames(z_p, mask, spk_id=t["spk_ids"])
 
-    def synthesize_batch(self, requests: list[dict], seed: int = 0,
-                         max_sentences: int | None = None) -> SynthesisResult:
-        """Serve ``requests`` in groups of ``max_sentences``; returns each
+    def synthesize_batch(self, requests: list[dict],
+                         seed: int = 0) -> SynthesisResult:
+        """Serve ``requests`` in groups of ``cfg.max_sentences``; returns each
         request's waveform trimmed to its valid length and the batch RTF."""
         cfg = self.cfg
-        max_bs = max_sentences or cfg.max_sentences
         gen = torch.Generator(device=self.device).manual_seed(seed)
         wavs, group_seconds, audio_s = [], [], 0.0
-        for at in range(0, len(requests), max_bs):
-            batch, t_valid = collate(requests[at:at + max_bs])
+        for at in range(0, len(requests), cfg.max_sentences):
+            batch, t_valid = collate(requests[at:at + cfg.max_sentences])
             t0 = time.perf_counter()
             wav = self.synthesize(batch, generator=gen)
             if self.device.type == "cuda":

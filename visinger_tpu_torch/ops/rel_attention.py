@@ -3,8 +3,10 @@
 Replaces ``visinger_tpu/ops/pallas/attention_kernel.py::_attn_fwd_kernel``
 (host side ``_attn_pallas_fwd``, entry ``rel_attention``).  The CUDA kernel is
 ``csrc/rel_attention.cu``; its note gives the design.  On the H100 the
-function is bound by operations (~4·B·H·T²·dk flops against a few MB of
-q/k/v), and this first kernel runs on the float32 CUDA cores.
+function is bound by operations (~4·H·dk·Σ_b len_b² flops — a key at or
+past its item's length gets no weight, and every masked row is the same
+mean of v — against a few MB of q/k/v), and this first kernel runs on the
+float32 CUDA cores.
 
 ``rel_attention`` is the entry point: on a CPU tensor it runs
 ``rel_attention_plain``; on a CUDA tensor it launches the kernel or raises.

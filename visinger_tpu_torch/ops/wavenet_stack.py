@@ -3,9 +3,9 @@
 Replaces ``visinger_tpu/ops/pallas/wavenet_kernel.py::_wavenet_kernel``
 (host side ``_pallas_forward``, entry ``wavenet_fused_forward``).  The CUDA
 kernel is ``csrc/wavenet_stack.cu``; its note gives the design.  On the H100
-the function is bound by operations (~2·B·T·L·(K+1)·C·2C flops against
-~1.5 MB of weights per layer), and this first kernel runs on the float32
-CUDA cores.
+the function is bound by operations (~2·B·T·(L·(K+1)·C·2C − C·C) flops —
+the last layer's 1x1 is C -> C — against ~1.5 MB of weights per layer),
+and this first kernel runs on the float32 CUDA cores.
 
 ``wavenet_stack`` is the entry point: on a CPU tensor it runs
 ``wavenet_stack_plain``; on a CUDA tensor it launches the kernel or raises.
@@ -21,7 +21,6 @@ import torch.nn.functional as F
 
 from visinger_tpu_torch.ops import cuda_build
 
-TILE_FRAMES = 32   # centre frames per block: 80 blocks at B=4, T=640
 launches = 0
 
 
@@ -84,14 +83,13 @@ def wavenet_stack_fwd(x, w_in, b_in, w_rs, b_rs, g_bias, mask):
     lib = cuda_build.load("wavenet_stack")
     fn = lib.wavenet_stack_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     out = torch.empty_like(x)
-    threads = min(256, -(-c // 32) * 32)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), mask.data_ptr(), w_in.data_ptr(), g_all.data_ptr(),
              w_rs.data_ptr(), b_rs.data_ptr(), out.data_ptr(),
-             b, t, c, n_layers, k, TILE_FRAMES, threads, stream)
+             b, t, c, n_layers, k, stream)
     cuda_build.check(err, "wavenet_stack_fwd")
     launches += 1
     return out
