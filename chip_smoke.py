@@ -1,28 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port of VISinger synthesis on one CUDA card.
+"""Drive the PyTorch/H100 port of VISinger on one CUDA card: the GAN
+training step (the main path) and synthesis.
 
     python3 chip_smoke.py              # the check (one card)
-    python3 chip_smoke.py --profile    # also write a torch.profiler summary
-                                       # of one synthesis group to
-                                       # chiprun_out/profile_synthesis.txt
+    python3 chip_smoke.py --profile    # also write torch.profiler summaries
+                                       # of one training step and one
+                                       # synthesis group under chiprun_out/
 
 Phases, each printing a line; any failure raises and exits nonzero:
   1. the card's name and power limit (nvidia-smi); TF32 off for matmuls and
      convolutions (every comparison below is float32);
-  2. build both CUDA kernels from ``visinger_tpu_torch/csrc`` (one nvcc
-     each, in parallel);
+  2. build the CUDA kernels from ``visinger_tpu_torch/csrc`` (one nvcc per
+     source, in parallel);
   3. K1 (relative attention) against its plain version at the frame-rate
      shape [4, 640, 192] and the token-rate shape [4, 192, 192], 2 heads,
-     ragged lengths; kernel / plain times (CUDA events, median of 30) and
-     the bound;
-  4. K2 (WaveNet stack) likewise at the flow shape x [4, 640, 192], L=4;
-  5. full-width ``visinger_csd`` synthesis with seeded weights (flow
-     ``post`` set nonzero so K2's output matters): 8 token requests of up to
-     640 frames / 192 tokens through ``TorchSynthesizer`` in groups of 4,
-     with the launch counts per group (K1 16, K2 4), wall time per group,
-     audio-s/s and peak memory; then one short request (B=1, T=160) on the
-     card and on the CPU with the same weights and eps, which must agree;
-  6. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+     ragged lengths; then with dropout 0.1 against the plain version with
+     the same seed, its keep rate and a second seed's different mask;
+  4. K3 (attention backward) against autograd of the plain version at both
+     shapes, dropout off and 0.1, with a random g;
+  5. K2 (WaveNet stack) at the flow shape x [4, 640, 192], L=4, and at the
+     posterior shape, L=16, where the gradients of its autograd function are
+     also held against plain autograd;
+     kernel / plain times (CUDA events, median of 30) and the bounds;
+  6. full-width ``visinger_csd`` training with seeded weights: 2 warm-up and
+     5 timed steps of ``train_step`` on a synthetic batch of 4 (up to 640
+     frames, 192 tokens), with the launches per step (K1 18, K3 18, K2 5),
+     finite metrics, changed G and D parameters, ms per step, mel-frames/s
+     and peak memory; then one step's losses and generator gradients on the
+     card and on the CPU (B=1, T=160, dropout 0, same weights, posterior
+     noise and slice), which must agree;
+  7. full-width synthesis: 8 token requests of up to 640 frames / 192 tokens
+     through ``TorchSynthesizer`` in groups of 4 (launches per group K1 16,
+     K2 4), then one short request on the card and on the CPU;
+  8. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 
 It imports the port only (no JAX) and exits nonzero, printing no result,
 without a CUDA device or outside a checkout of the repository.
@@ -46,6 +56,21 @@ TOL_KERNEL = 1e-4
 # weights give a waveform of ~1e-2 amplitude, so an absolute limit would
 # hide a fault of a few percent
 TOL_CPU_REL = 1e-4
+# card vs CPU training step: each loss within TOL_LOSS_REL of the CPU's, each
+# generator gradient tensor within TOL_GRAD_REL of that tensor's peak.  Not
+# 1e-3: a ReLU input within rounding of 0 takes the other branch on one
+# device, which moves whole rows of the next conv's weight gradient (the
+# pitch predictor's FFN read 5.9e-3 of its peak, chip run 2, PR 3, with the
+# losses within 2e-7); a wrong kernel moves gradients by O(1) of their peak
+TOL_LOSS_REL = 1e-4
+TOL_GRAD_REL = 1e-2
+# the attention key projection's bias moves every score of a row by the same
+# amount, which the softmax removes: its gradient is zero in exact arithmetic
+# and rounding noise on both devices, so it is held to a share of the
+# largest gradient instead of to its own peak
+ZERO_GRAD = ".conv_k.bias"
+TOL_ZERO_GRAD = 1e-4
+KEEP_TOL = 0.005         # K1 dropout 0.1: keep rate within 0.9 +- this
 VOCABS = (60, 117, 98)   # as bench.py's synthesis benchmark
 
 
@@ -96,6 +121,23 @@ def k1_work(lengths, t, c, heads, window) -> tuple[float, float]:
     return flops, nbytes + 4 * 2 * nb * dk + 4 * len(lengths)
 
 
+def k3_work(lengths, t, c, heads, window) -> tuple[float, float]:
+    """Flops and bytes K3's function needs for these lengths.  For each valid
+    pair (i, j < len): the score, g.v, and the dq, dk and dv products
+    (5 x 2·dk); per valid row the band terms (5 x 2·nb·dk); D_i = g.out
+    per row; the masked rows are uniform, so their dv share is one sum of
+    their g added to every key."""
+    dk, nb = c // heads, 2 * window + 1
+    flops = nbytes = 0
+    for n in lengths:
+        flops += heads * (10 * dk * n * n + 10 * nb * dk * n + 2 * dk * t
+                          + (dk * (2 * t - n) if n < t else 0))
+        # q, k, v, out: n rows; g: t rows; dq, dk, dv: t rows
+        nbytes += 4 * c * (4 * n + 4 * t)
+    return flops, nbytes + 4 * 4 * nb * dk + 4 * len(lengths) * (1 + heads
+                                                                  * t)
+
+
 def k2_work(lengths, t, c, n_layers, k) -> tuple[float, float]:
     """Flops and bytes K2's function needs for these lengths.  Layer 0
     reads x at every frame; later layers read h, which the stack zeroes at
@@ -137,7 +179,7 @@ def check_rel_attention(torch, ra, dev):
             dk ** -0.5).to(dev) for _ in range(2))
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         kw = dict(window=window, scale=dk ** -0.5)
-        out = ra.rel_attention_fwd(q, k, v, ek, ev, lens, **kw)
+        out, _ = ra.rel_attention_fwd(q, k, v, ek, ev, lens, **kw)
         ref = ra.rel_attention_plain(q, k, v, ek, ev, lens, **kw)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
@@ -157,15 +199,107 @@ def check_rel_attention(torch, ra, dev):
     return rows
 
 
-def check_wavenet_stack(torch, ws, dev):
-    """K2 against its plain version at the flow-coupling shape."""
-    gen = torch.Generator(device="cpu").manual_seed(2)
-    b, t, c, n_layers, k = 4, 640, 192, 4, 5
+def attention_inputs(torch, gen, t, dev, c=192, heads=2, window=4):
+    dk = c // heads
+    q, k, v = (torch.randn(4, t, c, generator=gen).to(dev) for _ in range(3))
+    ek, ev = (torch.randn(2 * window + 1, dk, generator=gen).mul(
+        dk ** -0.5).to(dev) for _ in range(2))
+    return q, k, v, ek, ev
 
+
+def check_k1_dropout(torch, ra, dev):
+    """K1 with dropout 0.1 against its plain version with the same seed at
+    the frame shape; the kernel's keep rate (with q = 0 every row is uniform
+    over T keys, so out = v-sum of kept keys / (T (1 - rate)) with v = 1);
+    and a second seed's mask differs."""
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    t, c, heads, window, rate = 640, 192, 2, 4, 0.1
+    dk = c // heads
+    q, k, v, ek, ev = attention_inputs(torch, gen, t, dev)
+    lens = torch.tensor([640, 600, 517, 333], dtype=torch.int32, device=dev)
+    seed = torch.tensor([12345], dtype=torch.int32, device=dev)
+    kw = dict(window=window, scale=dk ** -0.5, seed=seed, rate=rate)
+    out, _ = ra.rel_attention_fwd(q, k, v, ek, ev, lens, **kw)
+    ref = ra.rel_attention_plain(q, k, v, ek, ev, lens, **kw)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    check(bool(torch.isfinite(out).all()), "K1 dropout: non-finite")
+    check(err <= TOL_KERNEL, f"K1 dropout: max abs err {err} > {TOL_KERNEL}")
+    full = torch.full((4,), t, dtype=torch.int32, device=dev)
+    zeros, ones = torch.zeros_like(q), torch.ones_like(v)
+    no_band = torch.zeros_like(ev)
+    rates = []
+    for s in (12345, 777):
+        o, _ = ra.rel_attention_fwd(
+            zeros, k, ones, ek, no_band, full, window=window, scale=1.0,
+            seed=torch.tensor([s], dtype=torch.int32, device=dev), rate=rate)
+        rates.append(o)
+    keep = float(rates[0].mean()) * (1 - rate)
+    differ = float((rates[0] != rates[1]).float().mean())
+    check(abs(keep - (1 - rate)) <= KEEP_TOL,
+          f"K1 dropout: keep rate {keep} not within {KEEP_TOL} of "
+          f"{1 - rate}")
+    check(differ > 0.5, f"K1 dropout: a second seed changed only "
+          f"{differ} of the outputs")
+    ms = time_ms(torch, lambda: ra.rel_attention_fwd(q, k, v, ek, ev, lens,
+                                                      **kw))
+    plain_ms = time_ms(torch, lambda: ra.rel_attention_plain(
+        q, k, v, ek, ev, lens, **kw))
+    row = {"shape": f"[4, {t}, {c}] frame, dropout {rate}",
+           "max_abs_err": err, "keep_rate": keep,
+           "second_seed_outputs_changed": differ, "ms": ms,
+           "plain_ms": plain_ms}
+    phase("k1_dropout", **row)
+    return row
+
+
+def check_rel_attention_bwd(torch, ra, dev):
+    """K3 against autograd of K1's plain version at the frame and token
+    shapes, ragged lengths, a random g, dropout off and 0.1 (same seed)."""
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    c, heads, window = 192, 2, 4
+    dk = c // heads
+    seed = torch.tensor([2024], dtype=torch.int32, device=dev)
+    rows = []
+    for label, t, lengths in (("frame", 640, [640, 600, 517, 333]),
+                              ("token", 192, [192, 180, 151, 97])):
+        q, k, v, ek, ev = attention_inputs(torch, gen, t, dev)
+        g = torch.randn(4, t, c, generator=gen).to(dev)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        for rate in (0.0, 0.1):
+            kw = dict(window=window, scale=dk ** -0.5, seed=seed, rate=rate)
+            out, stats = ra.rel_attention_fwd(q, k, v, ek, ev, lens, **kw)
+            got = ra.rel_attention_bwd(q, k, v, ek, ev, lens, g, out, stats,
+                                       **kw)
+            ref = ra.rel_attention_bwd_plain(q, k, v, ek, ev, lens, g, **kw)
+            torch.cuda.synchronize()
+            errs = {name: float((a - r).abs().max()) for name, a, r in zip(
+                ("dq", "dk", "dv", "d_emb_rel_k", "d_emb_rel_v"), got, ref)}
+            for name, a in zip(errs, got):
+                check(bool(torch.isfinite(a).all()),
+                      f"K3 {label} rate {rate}: {name} non-finite")
+                check(errs[name] <= TOL_KERNEL, f"K3 {label} rate {rate}: "
+                      f"{name} max abs err {errs[name]} > {TOL_KERNEL}")
+            ms = time_ms(torch, lambda: ra.rel_attention_bwd(
+                q, k, v, ek, ev, lens, g, out, stats, **kw))
+            plain_ms = time_ms(torch, lambda: ra.rel_attention_bwd_plain(
+                q, k, v, ek, ev, lens, g, **kw))
+            flops, nbytes = k3_work(lengths, t, c, heads, window)
+            b_ms, b_by = bound_ms(flops, nbytes)
+            row = {"shape": f"[4, {t}, {c}] {label}", "dropout": rate,
+                   "max_abs_err": max(errs.values()), "errs": errs, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+            phase("k3_rel_attention_bwd", **row)
+            rows.append(row)
+    return rows
+
+
+def stack_inputs(torch, gen, dev, lengths, t, c, n_layers, k):
     def u(*shape, bound):
         return (torch.rand(*shape, generator=gen) * 2 - 1).mul(bound).to(dev)
 
-    lengths = [640, 600, 517, 333]
+    b = len(lengths)
     mask = ragged_mask(torch, lengths, t, dev)
     x = torch.randn(b, t, c, generator=gen).to(dev) * mask
     w_in = u(n_layers, k, c, 2 * c, bound=(k * c) ** -0.5)
@@ -173,23 +307,191 @@ def check_wavenet_stack(torch, ws, dev):
     w_rs = u(n_layers, c, 2 * c, bound=c ** -0.5)
     b_rs = u(n_layers, 2 * c, bound=c ** -0.5)
     g_bias = u(b, n_layers, 2 * c, bound=0.5)
-    args = (x, w_in, b_in, w_rs, b_rs, g_bias, mask)
+    return x, w_in, b_in, w_rs, b_rs, g_bias, mask
+
+
+def check_wavenet_stack(torch, ws, dev, n_layers, label, grads=False):
+    """K2 against its plain version at x [4, 640, 192] with ``n_layers``
+    layers; with ``grads``, also the gradients of ``wavenet_stack`` (K2
+    forward, recomputed plain backward) against plain autograd."""
+    gen = torch.Generator(device="cpu").manual_seed(2 + n_layers)
+    b, t, c, k = 4, 640, 192, 5
+    lengths = [640, 600, 517, 333]
+    args = stack_inputs(torch, gen, dev, lengths, t, c, n_layers, k)
     out = ws.wavenet_stack_fwd(*args)
     ref = ws.wavenet_stack_plain(*args)
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
-    check(bool(torch.isfinite(out).all()), "K2: non-finite")
-    check(err <= TOL_KERNEL, f"K2: max abs err {err} > {TOL_KERNEL}")
+    check(bool(torch.isfinite(out).all()), f"K2 {label}: non-finite")
+    check(err <= TOL_KERNEL, f"K2 {label}: max abs err {err} > {TOL_KERNEL}")
+    row = {"shape": f"x [{b}, {t}, {c}] L={n_layers} K={k}",
+           "max_abs_err": err}
+    if grads:
+        gy = torch.randn(b, t, c, generator=gen).to(dev)
+        grad_errs = {}
+        diff = [a.clone().requires_grad_(True) for a in args[:6]]
+        plain = [a.clone().requires_grad_(True) for a in args[:6]]
+        got = torch.autograd.grad(ws.wavenet_stack(*diff, args[6]), diff, gy)
+        want = torch.autograd.grad(ws.wavenet_stack_plain(*plain, args[6]),
+                                   plain, gy)
+        names = ("x", "w_in", "b_in", "w_rs", "b_rs", "g_bias")
+        for name, a, r in zip(names, got, want):
+            tol = TOL_KERNEL * max(1.0, float(r.abs().max()))
+            grad_errs[name] = float((a - r).abs().max())
+            check(grad_errs[name] <= tol, f"K2 {label} grad {name}: max abs "
+                  f"err {grad_errs[name]} > {tol}")
+        row["grad_errs"] = grad_errs
     ms = time_ms(torch, lambda: ws.wavenet_stack_fwd(*args))
     plain_ms = time_ms(torch, lambda: ws.wavenet_stack_plain(*args))
     flops, nbytes = k2_work(lengths, t, c, n_layers, k)
     b_ms, b_by = bound_ms(flops, nbytes)
-    row = {"shape": f"x [{b}, {t}, {c}] L={n_layers} K={k}",
-           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
-           "mbytes": nbytes / 1e6}
-    phase("k2_wavenet_stack", **row)
+    row.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               gflop=flops / 1e9, mbytes=nbytes / 1e6)
+    phase(f"k2_{label}", **row)
     return row
+
+
+def training_batch(cfg, b, n_tokens, n_frames, seed):
+    """A synthetic batch without ``spec``: the step computes the linear
+    spectrogram from the waveform, as on the real path."""
+    from visinger_tpu_torch.data.synthetic import synthetic_batch
+
+    batch = synthetic_batch(b, n_tokens, n_frames, *VOCABS,
+                            num_linear_bins=cfg.num_linear_bins,
+                            hop_size=cfg.hop_size, seed=seed)
+    batch.pop("spec")
+    return batch
+
+
+def training(torch, ra, ws, dev, profile: bool):
+    """Full-width training steps on the card; returns the launch counts of
+    the timed steps."""
+    from visinger_tpu_torch.config import visinger_csd
+    from visinger_tpu_torch.models.factory import build_models
+    from visinger_tpu_torch.training.train_state import create_train_state
+    from visinger_tpu_torch.training.train_step import make_train_step
+
+    cfg = visinger_csd()
+    model, disc = build_models(cfg, *VOCABS, device=dev, seed=0)
+    state = create_train_state(model, disc, seed=0)
+    train_step = make_train_step(cfg, model, disc, device=dev)
+    b, t = cfg.max_sentences, 640
+    batch = training_batch(cfg, b, 192, t, seed=0)
+    before = {"g": [p.detach().clone() for p in model.parameters()],
+              "d": [p.detach().clone() for p in disc.parameters()]}
+    for _ in range(2):                                    # warm-up
+        state, _ = train_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps, step_ms, metrics = 5, [], []
+    ra.launches = ra.bwd_launches = ws.launches = 0
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    counts = {"rel_attention_fwd": ra.launches,
+              "rel_attention_bwd": ra.bwd_launches,
+              "wavenet_stack_fwd": ws.launches}
+    n_attn = (cfg.enc_layers + cfg.pitch_predictor_layers
+              + cfg.frame_prior_layers + cfg.phoneme_predictor_layers)
+    per_step = {"rel_attention_fwd": n_attn, "rel_attention_bwd": n_attn,
+                "wavenet_stack_fwd": 1 + cfg.flow_n_flows}
+    for name, n in per_step.items():
+        check(counts[name] == n * steps,
+              f"training: {name} {counts[name]} launches != {n} x {steps}")
+    for m in metrics:
+        for k, v in m.items():
+            check(bool(torch.isfinite(v)), f"training: metric {k} = {v}")
+    changed = {}
+    for name, mod in (("g", model), ("d", disc)):
+        moved = [bool((p.detach() != p0).any())
+                 for p, p0 in zip(mod.parameters(), before[name])]
+        changed[name] = sum(moved) / len(moved)
+        check(changed[name] > 0.9, f"training: only {changed[name]} of the "
+              f"{name} parameter tensors changed")
+    med = sorted(step_ms)[steps // 2]
+    phase("training", batch=b, frames=t, tokens=192, steps=steps,
+          launches=counts,
+          launches_per_step={k: v / steps for k, v in counts.items()},
+          median_step_ms=med, step_ms=step_ms,
+          mel_frames_per_s=b * t / (med / 1e3),
+          peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+          params_changed=changed,
+          last_metrics={k: float(v) for k, v in metrics[-1].items()})
+    if profile:
+        profile_run(torch, lambda: train_step(state, batch), "train_step")
+    return counts
+
+
+def train_card_vs_cpu(torch, dev):
+    """One training step's losses and generator gradients, full width, B=1,
+    T=160, dropout 0: the same weights, posterior noise and slice on the
+    card and on the CPU."""
+    from visinger_tpu_torch.config import visinger_csd
+    from visinger_tpu_torch.models.factory import build_models
+    from visinger_tpu_torch.training.train_state import create_train_state
+    from visinger_tpu_torch.training.train_step import make_train_step
+
+    cfg = visinger_csd().replace(p_dropout=0.0)
+    t = 160
+    batch = training_batch(cfg, 1, 48, t, seed=4)
+    gen = torch.Generator().manual_seed(6)
+    eps_q = torch.randn(1, t, cfg.hidden_size, generator=gen)
+    ids = torch.tensor([57])
+    got = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        model, disc = build_models(cfg, *VOCABS, device=d, seed=0)
+        names = [n for n, _ in model.named_parameters()]
+        state = create_train_state(model, disc, seed=0)
+        state.step = 1  # past the KL warm-up, so every loss is nonzero
+        train_step = make_train_step(cfg, model, disc, device=d)
+        total, losses, _ = train_step.generator_loss(
+            state, batch, eps_q=eps_q.to(d), ids_slice=ids.to(d))
+        params = list(model.parameters())
+        grads = torch.autograd.grad(total, params, allow_unused=True)
+        got[name] = ({k: float(v.detach()) for k, v in losses.items()},
+                     [None if g is None else g.detach().cpu() for g in grads])
+    (loss_c, grad_c), (loss_r, grad_r) = got["cuda"], got["cpu"]
+    loss_err = {k: abs(loss_c[k] - loss_r[k]) / max(abs(loss_r[k]), 1e-12)
+                for k in loss_r}
+    gmax = max(float(r.abs().max()) for r in grad_r if r is not None)
+    grad_err, zero_noise, failures = {}, {}, []
+    for name, a, r in zip(names, grad_c, grad_r):
+        if (a is None) != (r is None):
+            failures.append(f"grad {name}: reached on one device only")
+            continue
+        if r is None:
+            continue
+        if not bool(torch.isfinite(a).all()):
+            failures.append(f"grad {name}: non-finite on the card")
+        if name.endswith(ZERO_GRAD):
+            zero_noise[name] = max(float(a.abs().max()),
+                                   float(r.abs().max())) / gmax
+        else:
+            peak = float(r.abs().max())
+            grad_err[name] = (float((a - r).abs().max()) / peak
+                              if peak > 0 else float(a.abs().max()))
+    worst = sorted(grad_err, key=grad_err.get, reverse=True)[:5]
+    phase("train_card_vs_cpu", frames=t, losses=loss_r,
+          loss_rel_err=loss_err, max_loss_rel_err=max(loss_err.values()),
+          max_grad_err_of_peak=grad_err[worst[0]],
+          median_grad_err_of_peak=sorted(grad_err.values())[
+              len(grad_err) // 2],
+          grads_over_1e_3=sum(e > 1e-3 for e in grad_err.values()),
+          grad_tensors=len(grad_err),
+          worst_grads={n: grad_err[n] for n in worst},
+          max_zero_grad_noise=max(zero_noise.values()), grad_peak=gmax,
+          loss_tol=TOL_LOSS_REL, grad_tol=TOL_GRAD_REL,
+          zero_grad_tol=TOL_ZERO_GRAD)
+    failures += [f"loss {k}: rel err {e} > {TOL_LOSS_REL}"
+                 for k, e in loss_err.items() if e > TOL_LOSS_REL]
+    failures += [f"grad {n}: max abs err {e} of its peak > {TOL_GRAD_REL}"
+                 for n, e in grad_err.items() if e > TOL_GRAD_REL]
+    failures += [f"grad {n}: {e} of the largest gradient > {TOL_ZERO_GRAD}"
+                 for n, e in zero_noise.items() if e > TOL_ZERO_GRAD]
+    check(not failures, "card vs CPU training: " + "; ".join(failures[:5]))
 
 
 def requests_from(batch, n):
@@ -222,7 +524,7 @@ def synthesis(torch, ra, ws, dev, profile: bool):
     synth.synthesize_batch(requests, seed=0)          # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    passes = 3
+    passes = 2
     ra.launches = ws.launches = 0
     results = [synth.synthesize_batch(requests, seed=0) for _ in range(passes)]
     counts = {"rel_attention_fwd": ra.launches,
@@ -255,7 +557,10 @@ def synthesis(torch, ra, ws, dev, profile: bool):
           peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
 
     if profile:
-        profile_group(torch, synth, requests[:4])
+        from visinger_tpu_torch.infer.infer import collate
+
+        group, _ = collate(requests[:4])
+        profile_run(torch, lambda: synth.synthesize(group), "synthesis")
 
     # one short request on the card and on the CPU: same weights, same eps
     short = synthetic_batch(1, 48, 160, *VOCABS, hop_size=cfg.hop_size,
@@ -284,19 +589,16 @@ def synthesis(torch, ra, ws, dev, profile: bool):
     return counts
 
 
-def profile_group(torch, synth, requests):
-    """Device time by kernel for one synthesis group of 4."""
+def profile_run(torch, fn, tag: str):
+    """Device time by kernel and the device idle share of one ``fn()``."""
     from torch.profiler import ProfilerActivity, profile
 
-    from visinger_tpu_torch.infer.infer import collate
-
-    batch, _ = collate(requests)
-    synth.synthesize(batch)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        synth.synthesize(batch)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device busy time: the union of the kernels' intervals on the timeline
@@ -309,15 +611,16 @@ def profile_group(torch, synth, requests):
             busy_us += stop - max(start, end)
             end = stop
     table = prof.key_averages().table(sort_by="self_device_time_total",
-                                      row_limit=30)
+                                      row_limit=40)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "profile_synthesis.txt").write_text(
+    (out / f"profile_{tag}.txt").write_text(
         f"wall_ms {wall * 1e3}\ndevice_busy_ms {busy_us / 1e3}\n"
         f"kernels {len(spans)}\n\n{table}\n")
-    phase("profile", wall_ms=wall * 1e3, device_busy_ms=busy_us / 1e3,
-          device_kernels=len(spans), idle_share=1 - busy_us / 1e3 / (wall * 1e3),
-          table="chiprun_out/profile_synthesis.txt")
+    phase(f"profile_{tag}", wall_ms=wall * 1e3, device_busy_ms=busy_us / 1e3,
+          device_kernels=len(spans),
+          idle_share=1 - busy_us / 1e3 / (wall * 1e3),
+          table=f"chiprun_out/profile_{tag}.txt")
 
 
 def main() -> int:
@@ -359,27 +662,48 @@ def main() -> int:
     phase("build", seconds=build_s, ptxas=ptxas)
 
     k1_rows = check_rel_attention(torch, ra, dev)
-    k2_row = check_wavenet_stack(torch, ws, dev)
-    counts = synthesis(torch, ra, ws, dev, args.profile)
+    k1_drop = check_k1_dropout(torch, ra, dev)
+    k3_rows = check_rel_attention_bwd(torch, ra, dev)
+    k2_row = check_wavenet_stack(torch, ws, dev, 4, "wavenet_stack")
+    k2_post = check_wavenet_stack(torch, ws, dev, 16, "posterior",
+                                  grads=True)
+    train_counts = training(torch, ra, ws, dev, args.profile)
+    train_card_vs_cpu(torch, dev)
+    synth_counts = synthesis(torch, ra, ws, dev, args.profile)
 
-    k1 = k1_rows[0]  # the frame-rate shape: 10 of the 16 layers
+    k1 = k1_rows[0]  # the frame-rate shape: 12 of the 18 layers per step
+    k3 = next(r for r in k3_rows if r["shape"].endswith("frame")
+              and r["dropout"] > 0)
     kernels = [
         {"name": "rel_attention_fwd", "route": "cuda",
          "source": "visinger_tpu_torch/csrc/rel_attention.cu",
          "replaces": "visinger_tpu/ops/pallas/attention_kernel.py:291",
-         "launches": counts["rel_attention_fwd"],
-         "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
+         "launches": train_counts["rel_attention_fwd"],
+         "max_abs_err": max([r["max_abs_err"] for r in k1_rows]
+                            + [k1_drop["max_abs_err"]]),
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-         "library_ms": None, "shape": k1["shape"]},
+         "library_ms": None, "shape": k1["shape"],
+         "synthesis_launches": synth_counts["rel_attention_fwd"]},
+        {"name": "rel_attention_bwd", "route": "cuda",
+         "source": "visinger_tpu_torch/csrc/rel_attention.cu",
+         "replaces": "visinger_tpu/ops/pallas/attention_kernel.py:250",
+         "launches": train_counts["rel_attention_bwd"],
+         "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+         "library_ms": None, "shape": f"{k3['shape']}, dropout 0.1"},
         {"name": "wavenet_stack_fwd", "route": "cuda",
          "source": "visinger_tpu_torch/csrc/wavenet_stack.cu",
          "replaces": "visinger_tpu/ops/pallas/wavenet_kernel.py:115",
-         "launches": counts["wavenet_stack_fwd"],
-         "max_abs_err": k2_row["max_abs_err"],
-         "ms": k2_row["ms"], "plain_ms": k2_row["plain_ms"],
-         "bound_ms": k2_row["bound_ms"], "bound_by": k2_row["bound_by"],
-         "library_ms": None, "shape": k2_row["shape"]},
+         "launches": train_counts["wavenet_stack_fwd"],
+         "max_abs_err": max(k2_row["max_abs_err"], k2_post["max_abs_err"]),
+         "ms": k2_post["ms"], "plain_ms": k2_post["plain_ms"],
+         "bound_ms": k2_post["bound_ms"], "bound_by": k2_post["bound_by"],
+         "library_ms": None, "shape": k2_post["shape"],
+         "l4_ms": k2_row["ms"], "l4_plain_ms": k2_row["plain_ms"],
+         "l4_bound_ms": k2_row["bound_ms"],
+         "synthesis_launches": synth_counts["wavenet_stack_fwd"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

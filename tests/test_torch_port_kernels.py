@@ -125,9 +125,15 @@ def test_rel_attention_entry_uses_plain_version_on_cpu():
     b = rel_attention_plain(t(q), t(k), t(v), t(ek), t(ev), lengths,
                             window=4, scale=0.3)
     assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="seed"):
         rel_attention(t(q), t(k), t(v), t(ek), t(ev), t(mask), window=4,
                       scale=0.3, dropout_rate=0.1)
+    seed = torch.tensor([5], dtype=torch.int32)
+    a = rel_attention(t(q), t(k), t(v), t(ek), t(ev), t(mask), window=4,
+                      scale=0.3, dropout_rate=0.1, seed=seed)
+    b = rel_attention_plain(t(q), t(k), t(v), t(ek), t(ev), lengths,
+                            window=4, scale=0.3, seed=seed, rate=0.1)
+    assert torch.equal(a, b)
 
 
 def test_attention_module_matches_legacy_xla_path():

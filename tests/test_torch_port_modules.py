@@ -219,6 +219,13 @@ def _as_tuples(v):
     return v
 
 
+# keys the YAML leaves out, with the default the JAX code reads them with
+# (models/visinger.py, models/factory.py, training/train_step.py)
+_JAX_CODE_DEFAULTS = {"slice_ref_padded": False, "disc_s_base": 16,
+                      "disc_p_channels": (32, 128, 512, 1024),
+                      "remat_policy": "none"}
+
+
 @pytest.mark.parametrize("which", ["visinger_csd", "tiny"])
 def test_recipe_matches_yaml(which):
     if which == "tiny":
@@ -226,8 +233,8 @@ def test_recipe_matches_yaml(which):
     else:
         port, ref = port_config.visinger_csd(), load_config(name="visinger_csd")
     for f in dataclasses.fields(port):
-        assert _as_tuples(getattr(port, f.name)) == _as_tuples(ref[f.name]), \
-            f.name
+        want = ref.get(f.name, _JAX_CODE_DEFAULTS.get(f.name, KeyError))
+        assert _as_tuples(getattr(port, f.name)) == _as_tuples(want), f.name
 
 
 def test_converter_raises_on_unknown_leaves():
@@ -241,9 +248,18 @@ def test_converter_raises_on_unknown_leaves():
         params_from_jax({"stray": np.ones(3)})
     with pytest.raises(ValueError, match="layout"):
         params_from_jax({"a": {"kernel": np.zeros((1, 2, 3, 4))}})
-    # the training-only subtrees are skipped by name, and only at the top
-    skipped = {"posterior_encoder": {"pre": conv},
-               "phoneme_predictor": {"x": conv}}
-    assert params_from_jax(skipped) == {}
-    assert set(params_from_jax({"a": {"posterior_encoder": conv}})) == {
-        "a.posterior_encoder.weight", "a.posterior_encoder.bias"}
+    # the period discriminator's (kh, 1) conv: [kh, 1, in, out] ->
+    # [out, in, kh, 1], weight-normed; without its g it has no rule
+    conv2d = {"kernel": np.arange(5 * 2 * 3, dtype=np.float32).reshape(
+        5, 1, 2, 3), "g": np.ones(3, np.float32),
+        "bias": np.zeros(3, np.float32)}
+    sd = params_from_jax({"disc_p2": {"conv_0": conv2d}})
+    assert sd["disc_p2.conv_0.weight_v"].shape == (3, 2, 5, 1)
+    assert float(sd["disc_p2.conv_0.weight_v"][2, 1, 4, 0]) == \
+        float(conv2d["kernel"][4, 0, 1, 2])
+    with pytest.raises(ValueError, match="layout"):
+        params_from_jax({"disc_p2": {"conv_0": {
+            k: v for k, v in conv2d.items() if k != "g"}}})
+    # every subtree converts, the training-only ones included
+    assert set(params_from_jax({"posterior_encoder": {"pre": conv}})) == {
+        "posterior_encoder.pre.weight", "posterior_encoder.pre.bias"}

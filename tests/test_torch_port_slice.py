@@ -33,6 +33,8 @@ from visinger_tpu_torch.convert import params_from_jax
 from visinger_tpu_torch.data.synthetic import synthetic_batch
 from visinger_tpu_torch.infer.infer import TorchSynthesizer
 from visinger_tpu_torch.models.factory import build_model
+from visinger_tpu_torch.models.factory import build_models as port_build_models
+from visinger_tpu_torch.training.train_step import make_train_step
 
 from test_torch_port_modules import fill_params
 
@@ -63,12 +65,12 @@ def port_inputs(raw):
 @pytest.fixture(scope="module")
 def slice_pair():
     jcfg = jax_tiny_config()
-    raw = synthetic_batch(B, N, T, *VOCABS, hop_size=jcfg.hop_size, seed=SEED)
-    jmodel = JVISinger(jcfg, *VOCABS)
-    key = jax.random.PRNGKey(0)
-    shapes = jax.eval_shape(lambda: jmodel.init(
-        {"params": key, "sample": key}, **jax_inputs(raw), infer=True))
-    params = fill_params(shapes["params"], SEED)
+    raw = synthetic_batch(B, N, T, *VOCABS, jcfg.num_linear_bins,
+                          jcfg.hop_size, seed=SEED)
+    jmodel, disc = build_models(jcfg, *VOCABS)
+    # the whole generator tree (train branch included), traced, not run
+    shapes = jax.eval_shape(lambda: init_params(jcfg, jmodel, disc, raw)[0])
+    params = fill_params(shapes, SEED)
     port = build_model(tiny_config(), *VOCABS, device="cpu")
     port.load_state_dict(params_from_jax(params), strict=True)
     # jitted applies for every prior and decode below: linen run eagerly
@@ -149,8 +151,7 @@ def test_forward_infer_is_prior_then_decode(slice_pair):
         z_p, mask = port.infer_prior(*port_inputs(raw), eps=eps)
         wav = port.decode_frames(z_p, mask, spk_id=port_inputs(raw)[-1])
     assert torch.equal(out["wav_out"], wav)
-    with pytest.raises(NotImplementedError):
-        port(*port_inputs(raw), infer=False)
+    assert set(out) == {"mu_p", "logs_p", "f0_pred", "wav_out"}
 
 
 def test_synthesizer_two_requests_match_jax(slice_pair):
@@ -191,8 +192,8 @@ def test_synthesizer_two_requests_match_jax(slice_pair):
 def test_jax_init_params_tree_converts(slice_pair):
     """The tree the JAX package's own initialisation builds
     (``factory.init_params``, train branch included; traced, not compiled,
-    and filled from a seed) converts: the training-only subtrees are skipped
-    by name and everything else loads strictly, giving the same prior."""
+    and filled from a seed) converts whole — the posterior and phoneme
+    subtrees included — and loads strictly, giving the same prior."""
     apply = slice_pair[0]
     jcfg = jax_tiny_config()
     raw = jax_synthetic_batch(B, N, T, *VOCABS,
@@ -201,10 +202,11 @@ def test_jax_init_params_tree_converts(slice_pair):
     shapes = jax.eval_shape(lambda: init_params(jcfg, jmodel, disc, raw)[0])
     params = fill_params(shapes, SEED + 2)
     assert set(TRAIN_ONLY) <= set(params)
+    state = params_from_jax(params)
+    assert any(k.startswith(TRAIN_ONLY) for k in state)
     port = build_model(tiny_config(), *VOCABS, device="cpu")
-    port.load_state_dict(params_from_jax(params), strict=True)
-    infer_params = {k: v for k, v in params.items() if k not in TRAIN_ONLY}
-    ref = jax_prior(apply, infer_params, jax_inputs(raw))
+    port.load_state_dict(state, strict=True)
+    ref = jax_prior(apply, params, jax_inputs(raw))
     with torch.no_grad():
         st = port.prior_stats(*port_inputs(raw))
     assert max_err(st["mu_p"], ref["mu_p"]) < 1e-4
@@ -218,8 +220,9 @@ _FORBIDDEN = re.compile(
 
 def test_port_imports_nothing_of_jax():
     """The port and chip_smoke.py import no jax, flax, yaml or visinger_tpu:
-    a CPU synthesis succeeds with those modules blocked, and no source
-    names them in an import."""
+    a CPU synthesis and a CPU training step (``training/``, ``ops/stft.py``)
+    succeed with those modules blocked, and no source names them in an
+    import."""
     sources = sorted((REPO / "visinger_tpu_torch").rglob("*.py"))
     sources.append(REPO / "chip_smoke.py")
     for path in sources:
@@ -233,6 +236,8 @@ from visinger_tpu_torch.config import tiny_config
 from visinger_tpu_torch.data.synthetic import synthetic_batch
 from visinger_tpu_torch.infer.infer import TorchSynthesizer
 from visinger_tpu_torch.models.factory import build_model
+from visinger_tpu_torch.models.factory import build_models as port_build_models
+from visinger_tpu_torch.training.train_step import make_train_step
 cfg = tiny_config()
 raw = synthetic_batch(2, 8, 48, 20, 30, 25, 16, cfg.hop_size, seed=0)
 reqs = [{k: raw[k][i:i + 1] for k in
@@ -240,6 +245,15 @@ reqs = [{k: raw[k][i:i + 1] for k in
 model = build_model(cfg, 20, 30, 25, device="cpu")
 res = TorchSynthesizer(cfg, model, device="cpu").synthesize_batch(reqs)
 assert all(w.size > 0 for w in res.wavs)
+from visinger_tpu_torch.models.factory import build_models
+from visinger_tpu_torch.ops import stft
+from visinger_tpu_torch.training.train_state import create_train_state
+from visinger_tpu_torch.training.train_step import make_train_step
+model, disc = build_models(cfg, 20, 30, 25, device="cpu")
+raw.pop("spec")  # computed from the waveform instead
+state, metrics = make_train_step(cfg, model, disc, device="cpu")(
+    create_train_state(model, disc), raw)
+assert all(bool(v.isfinite()) for v in metrics.values())
 import chip_smoke
 print("isolated-ok")
 """
@@ -258,3 +272,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     model = build_model(tiny_config(), *VOCABS, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         TorchSynthesizer(tiny_config(), model)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_build_models(tiny_config(), *VOCABS)
+    model, disc = port_build_models(tiny_config(), *VOCABS, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_step(tiny_config(), model, disc)

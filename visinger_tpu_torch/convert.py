@@ -1,13 +1,16 @@
 """JAX parameters -> the port's ``state_dict``.
 
-``params_from_jax`` takes the JAX ``params_g`` as a nested dict of numpy
+``params_from_jax`` takes a JAX parameter tree (``params_g`` for the
+generator, ``params_d`` for the discriminator) as a nested dict of numpy
 arrays (``jax.tree.map(np.asarray, params)``), so it imports no JAX.  The
 port's modules carry the JAX module names, so a module at path ``a.b.c``
 in the tree becomes keys ``a.b.c.<param>``.  Layout rules:
 
-  Conv1d          kernel [k, in, out] -> weight[_v] [out, in, k]; g [out]
+  Conv1d          kernel [k, in/groups, out] -> weight[_v] [out, in/groups, k];
+                  g [out]
   ConvTranspose1d kernel [k, in, out] -> weight_v [in, out, k] (no flip)
                   (the decoder's ``up_<i>`` modules)
+  Conv2dP         kernel [kh, 1, in, out] -> weight_v [out, in, kh, 1]
   Dense           kernel [in, out]    -> weight [out, in]
   Embed           embedding           -> weight, unchanged
   LayerNorm       gamma / beta        -> unchanged
@@ -21,8 +24,6 @@ import re
 import numpy as np
 import torch
 
-# training-only subtrees (posterior encoder, phoneme/CTC head)
-SKIPPED = ("posterior_encoder", "phoneme_predictor")
 _CONV_T = re.compile(r"(^|\.)decoder\.up_\d+$")
 
 
@@ -37,6 +38,8 @@ def _module(path: str, leaves: dict) -> dict:
             w = kernel.transpose(1, 2, 0)
         elif kernel.ndim == 3:
             w = kernel.transpose(2, 1, 0)
+        elif kernel.ndim == 4 and kernel.shape[1] == 1 and g is not None:
+            w = kernel.transpose(3, 2, 0, 1)
         elif kernel.ndim == 2 and g is None:
             w = kernel.T
         else:
@@ -61,15 +64,14 @@ def _module(path: str, leaves: dict) -> dict:
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
-    """Nested dict of numpy arrays (JAX ``params_g``) -> the port's
-    ``state_dict``.  Raises on any leaf it does not consume, apart from the
-    subtrees named in ``SKIPPED``."""
+    """Nested dict of numpy arrays (a JAX parameter tree) -> the port's
+    ``state_dict``.  Raises on any leaf it does not consume."""
     state: dict[str, torch.Tensor] = {}
 
     def walk(node: dict, path: str):
         leaves = {k: v for k, v in node.items() if not isinstance(v, dict)}
         for k, v in node.items():
-            if isinstance(v, dict) and not (path == "" and k in SKIPPED):
+            if isinstance(v, dict):
                 walk(v, f"{path}.{k}" if path else k)
         if leaves:
             if not path:

@@ -7,6 +7,7 @@ import torch
 
 from visinger_tpu_torch.config import Config
 from visinger_tpu_torch.models.visinger import VISinger
+from visinger_tpu_torch.modules.discriminator import MultiPeriodDiscriminator
 
 
 def resolve_device(device) -> torch.device:
@@ -30,3 +31,18 @@ def build_model(cfg: Config, ph_vocab: int, pitch_vocab: int, dur_vocab: int,
         torch.manual_seed(seed)
         model = VISinger(cfg, ph_vocab, pitch_vocab, dur_vocab)
     return model.to(dev).eval()
+
+
+def build_models(cfg: Config, ph_vocab: int, pitch_vocab: int,
+                 dur_vocab: int, device="cuda", seed: int = 0
+                 ) -> tuple[VISinger, MultiPeriodDiscriminator]:
+    """The generator and the discriminator (MPD + MSD) for training, drawn
+    on the CPU from ``seed`` as ``build_model`` does, on ``device``."""
+    dev = resolve_device(device)
+    model = build_model(cfg, ph_vocab, pitch_vocab, dur_vocab, dev, seed)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed + 1)
+        disc = MultiPeriodDiscriminator(
+            tuple(cfg.disc_periods), cfg.disc_s_base,
+            tuple(cfg.disc_p_channels), cfg.disc_pair_batch)
+    return model, disc.to(dev).eval()

@@ -1,17 +1,20 @@
 """Shared layers, [B, C, T] layout (counterpart of the JAX package's
 ``modules/common.py``).
 
-  - ``Conv1d`` / ``ConvTranspose1d`` with torch "same" padding and an
+  - ``Conv1d`` (grouped, strided, torch "same" or explicit padding),
+    ``ConvTranspose1d`` and the period discriminator's ``Conv2dP``, with an
     explicit weight norm g·v/sqrt(Σv² + 1e-12) over every axis but the
     out-feature (``torch.nn.utils.weight_norm`` on a transposed conv
     normalises per *input* channel, the wrong axis);
+  - ``dropout`` with masks from an explicit generator;
   - ``ChannelLayerNorm`` (eps 1e-4, float32 statistics);
   - ``TokenEmbedding`` (row 0 zero, N(0, H^-0.5));
   - sinusoidal positions from the nonpadding cumsum.
 
 Initialisers reproduce the JAX package's torch-default ones:
-U(±1/sqrt(fan_in)) for kernels and biases, fan = k·out for a transposed
-conv's kernel and bias, and weight-norm g = ||v|| at init.
+U(±1/sqrt(fan_in)) for kernels and biases (fan_in = in/groups·k), fan =
+k·out for a transposed conv's kernel and bias, and weight-norm g = ||v|| at
+init.
 """
 
 from __future__ import annotations
@@ -46,23 +49,42 @@ def _init_weight_norm(module: nn.Module, v: torch.Tensor, out_dim: int):
         torch.sqrt(torch.sum(v * v, dim=dims) + 1e-12))
 
 
-class Conv1d(nn.Module):
-    """1-D convolution on [B, C, T]; weight [out, in, k].
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Keep each entry with probability 1 - rate (scaled by 1/(1 - rate)),
+    the mask drawn from ``generator``; the identity when ``generator`` is
+    None (evaluation) or ``rate`` is 0."""
+    if generator is None or rate <= 0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x * (1.0 / (1.0 - rate)), torch.zeros_like(x))
 
-    ``init``: "torch" (U(±1/sqrt(in·k))), "xavier" (xavier-uniform, the
-    attention projections) or "zeros" (the flow's ``post``); the bias is
-    always U(±1/sqrt(in·k)).
+
+class Conv1d(nn.Module):
+    """1-D convolution on [B, C, T]; weight [out, in/groups, k].
+
+    ``padding`` None gives torch "same" padding.  ``init``: "torch"
+    (U(±1/sqrt(in/groups·k))), "xavier" (xavier-uniform, the attention
+    projections) or "zeros" (the flow's ``post``); the bias is always
+    U(±1/sqrt(in/groups·k)).
     """
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 1, dilation: int = 1, bias: bool = True,
-                 weight_norm: bool = False, init: str = "torch"):
+                 weight_norm: bool = False, init: str = "torch",
+                 stride: int = 1, groups: int = 1, padding: int | None = None):
         super().__init__()
+        if in_channels % groups or out_channels % groups:
+            raise ValueError(f"Conv1d: channels {in_channels}->{out_channels} "
+                             f"not divisible by groups {groups}")
         self.dilation = dilation
-        self.padding = torch_conv_pad(kernel_size, dilation)
+        self.stride = stride
+        self.groups = groups
+        self.padding = torch_conv_pad(kernel_size, dilation) \
+            if padding is None else padding
         self.weight_norm = weight_norm
-        fan_in = in_channels * kernel_size
-        v = torch.empty(out_channels, in_channels, kernel_size)
+        fan_in = in_channels // groups * kernel_size
+        v = torch.empty(out_channels, in_channels // groups, kernel_size)
         if init == "torch":
             nn.init.uniform_(v, -fan_in ** -0.5, fan_in ** -0.5)
         elif init == "xavier":
@@ -87,7 +109,8 @@ class Conv1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv1d(x, self.effective_weight(), self.bias,
-                        padding=self.padding, dilation=self.dilation)
+                        stride=self.stride, padding=self.padding,
+                        dilation=self.dilation, groups=self.groups)
 
 
 class ConvTranspose1d(nn.Module):
@@ -115,6 +138,29 @@ class ConvTranspose1d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv_transpose1d(x, self.effective_weight(), self.bias,
                                   stride=self.stride, padding=self.padding)
+
+
+class Conv2dP(nn.Module):
+    """The period discriminator's 2-D conv on [B, C, H, W]: kernel (kh, 1),
+    stride (sh, 1), padding ((kh-1)//2, 0), weight-norm weight
+    [out, in, kh, 1] (the JAX kernel [kh, 1, in, out] permuted (3, 2, 0, 1))
+    and a bias."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_h: int,
+                 stride_h: int = 1):
+        super().__init__()
+        self.stride = (stride_h, 1)
+        self.padding = (torch_conv_pad(kernel_h), 0)
+        bound = (in_channels * kernel_h) ** -0.5
+        v = torch.empty(out_channels, in_channels, kernel_h, 1)
+        nn.init.uniform_(v, -bound, bound)
+        _init_weight_norm(self, v, 0)
+        self.bias = nn.Parameter(
+            torch.empty(out_channels).uniform_(-bound, bound))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, _weight_norm(self.weight_v, self.weight_g, 0),
+                        self.bias, stride=self.stride, padding=self.padding)
 
 
 class ChannelLayerNorm(nn.Module):

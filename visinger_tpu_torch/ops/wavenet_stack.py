@@ -1,4 +1,5 @@
-"""K2: fused gated WaveNet stack (forward).
+"""K2: fused gated WaveNet stack (forward; the backward recomputes the plain
+version under autograd, as the JAX ``_fused_stack_bwd`` does).
 
 Replaces ``visinger_tpu/ops/pallas/wavenet_kernel.py::_wavenet_kernel``
 (host side ``_pallas_forward``, entry ``wavenet_fused_forward``).  The CUDA
@@ -7,9 +8,11 @@ the function is bound by operations (~2·B·T·(L·(K+1)·C·2C − C·C) flops 
 the last layer's 1x1 is C -> C — against ~1.5 MB of weights per layer),
 and this first kernel runs on the float32 CUDA cores.
 
-``wavenet_stack`` is the entry point: on a CPU tensor it runs
-``wavenet_stack_plain``; on a CUDA tensor it launches the kernel or raises.
-``launches`` counts kernel launches.
+``wavenet_stack`` is the entry point, differentiable: on a CPU tensor it runs
+``wavenet_stack_plain`` under ordinary autograd; on a CUDA tensor its forward
+launches the kernel (or raises) and its backward differentiates
+``wavenet_stack_plain`` recomputed from the saved inputs
+(``_WaveNetStack``).  ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -95,8 +98,30 @@ def wavenet_stack_fwd(x, w_in, b_in, w_rs, b_rs, g_bias, mask):
     return out
 
 
+class _WaveNetStack(torch.autograd.Function):
+    """Forward K2; backward: autograd of the plain version, recomputed."""
+
+    @staticmethod
+    def forward(ctx, x, w_in, b_in, w_rs, b_rs, g_bias, mask):
+        ctx.save_for_backward(x, w_in, b_in, w_rs, b_rs, g_bias, mask)
+        return wavenet_stack_fwd(x, w_in, b_in, w_rs, b_rs, g_bias, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_in, b_in, w_rs, b_rs, g_bias, mask = ctx.saved_tensors
+        ins = [None if a is None else a.detach().requires_grad_(need)
+               for a, need in zip((x, w_in, b_in, w_rs, b_rs, g_bias),
+                                  ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = wavenet_stack_plain(*ins, mask)
+            wanted = [a for a in ins if a is not None and a.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, g))
+        return (*(next(grads) if a is not None and a.requires_grad else None
+                  for a in ins), None)
+
+
 def wavenet_stack(x, w_in, b_in, w_rs, b_rs, g_bias, mask):
     """Fused WaveNet stack; arguments as in ``wavenet_stack_plain``."""
     if x.device.type == "cpu":
         return wavenet_stack_plain(x, w_in, b_in, w_rs, b_rs, g_bias, mask)
-    return wavenet_stack_fwd(x, w_in, b_in, w_rs, b_rs, g_bias, mask)
+    return _WaveNetStack.apply(x, w_in, b_in, w_rs, b_rs, g_bias, mask)
