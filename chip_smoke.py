@@ -11,17 +11,25 @@ Phases, each printing a line; any failure raises and exits nonzero:
   1. the card's name and power limit (nvidia-smi); TF32 off for matmuls and
      convolutions (every comparison below is float32);
   2. build the CUDA kernels from ``visinger_tpu_torch/csrc`` (one nvcc per
-     source, in parallel);
+     source, in parallel); print each kernel's registers and spills
+     (``-Xptxas -v``) and its dynamic shared memory and resident blocks per
+     SM at the model's shapes;
   3. K1 (relative attention) against its plain version at the frame-rate
      shape [4, 640, 192] and the token-rate shape [4, 192, 192], 2 heads,
      ragged lengths; then with dropout 0.1 against the plain version with
      the same seed, its keep rate and a second seed's different mask;
   4. K3 (attention backward) against autograd of the plain version at both
-     shapes, dropout off and 0.1, with a random g;
+     shapes, dropout off and 0.1, with a random g; a second run on the same
+     inputs must give bit-identical gradients;
   5. K2 (WaveNet stack) at the flow shape x [4, 640, 192], L=4, and at the
      posterior shape, L=16, where the gradients of its autograd function are
      also held against plain autograd;
-     kernel / plain times (CUDA events, median of 30) and the bounds;
+     kernel / plain device times (CUDA events, median of 30, each call
+     queued behind a sleep kernel so the wrapper's host time is not in it)
+     and per-call times (from an idle card, host time included, the method
+     of the earlier kernel tables), and two bounds, at
+     the float32 CUDA-core rate (``bound_ms``) and at the float32-accurate
+     3xTF32 tensor-core rate (``bound_tc_ms``);
   6. full-width ``visinger_csd`` training with seeded weights: 2 warm-up and
      5 timed steps of ``train_step`` on a synthetic batch of 4 (up to 640
      frames, 192 tokens), with the launches per step (K1 18, K3 18, K2 5),
@@ -50,6 +58,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 F32_PEAK = 67e12      # H100 SXM float32 FLOP/s outside the tensor cores
+TC_F32_PEAK = 495e12 / 3  # 3xTF32 on the tensor cores: three TF32 passes
 HBM_RATE = 3.35e12    # H100 SXM device-memory bytes/s
 TOL_KERNEL = 1e-4
 # card vs CPU waveform: max abs err <= TOL_CPU_REL * max|wav|; the random
@@ -83,8 +92,10 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def time_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
-    """Median over ``iters`` launches, each between two CUDA events."""
+def call_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
+    """Median over ``iters`` calls, each between two CUDA events recorded
+    on an idle card: the device's work plus the host time of the call up
+    to its last launch (the method of the earlier kernel tables)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -101,10 +112,66 @@ def time_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_RATE
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+_CYCLES_PER_MS = []
+
+
+def device_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
+    """Median device time of ``fn()`` over ``iters`` calls.  Each call is
+    enqueued behind a sleep kernel three times longer than the host takes
+    to enqueue it, so the interval between the events holds the device's
+    work (and the gaps between its kernels), not the wrapper's host time."""
+    if not _CYCLES_PER_MS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10 ** 7)
+        end.record()
+        end.synchronize()
+        _CYCLES_PER_MS.append(10 ** 7 / start.elapsed_time(end))
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    cycles = int(max(1.0, 3 * host_ms) * _CYCLES_PER_MS[0])
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def timings(torch, kernel, plain) -> dict:
+    """The kernel's and its plain version's device times (``ms``,
+    ``plain_ms``) and per-call times from an idle card (``call_ms``,
+    ``plain_call_ms``), in turns: plain, kernel, kernel, plain."""
+    plain_ms = device_ms(torch, plain)
+    ms = device_ms(torch, kernel)
+    return {"ms": ms, "plain_ms": plain_ms,
+            "call_ms": call_ms(torch, kernel),
+            "plain_call_ms": call_ms(torch, plain)}
+
+
+def bounds(flops: float, nbytes: float) -> dict:
+    """The least time for ``flops`` and ``nbytes``: ``bound_ms`` at the
+    float32 CUDA-core rate, ``bound_tc_ms`` at the 3xTF32 tensor-core rate,
+    each with what bounds it."""
+    t_bytes = nbytes / HBM_RATE
+    out = {}
+    for key, peak in (("bound", F32_PEAK), ("bound_tc", TC_F32_PEAK)):
+        t_ops = flops / peak
+        out[f"{key}_ms"] = max(t_ops, t_bytes) * 1e3
+        out[f"{key}_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    return out
 
 
 def k1_work(lengths, t, c, heads, window) -> tuple[float, float]:
@@ -185,15 +252,13 @@ def check_rel_attention(torch, ra, dev):
         err = float((out - ref).abs().max())
         check(bool(torch.isfinite(out).all()), f"K1 {label}: non-finite")
         check(err <= TOL_KERNEL, f"K1 {label}: max abs err {err} > {TOL_KERNEL}")
-        ms = time_ms(torch, lambda: ra.rel_attention_fwd(q, k, v, ek, ev, lens,
-                                                          **kw))
-        plain_ms = time_ms(torch, lambda: ra.rel_attention_plain(
-            q, k, v, ek, ev, lens, **kw))
+        times = timings(
+            torch, lambda: ra.rel_attention_fwd(q, k, v, ek, ev, lens, **kw),
+            lambda: ra.rel_attention_plain(q, k, v, ek, ev, lens, **kw))
         flops, nbytes = k1_work(lengths, t, c, heads, window)
-        b_ms, b_by = bound_ms(flops, nbytes)
         row = {"shape": f"[4, {t}, {c}] {label}", "max_abs_err": err,
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-               "bound_by": b_by, "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+               **times, **bounds(flops, nbytes),
+               "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
         phase("k1_rel_attention", **row)
         rows.append(row)
     return rows
@@ -241,21 +306,20 @@ def check_k1_dropout(torch, ra, dev):
           f"{1 - rate}")
     check(differ > 0.5, f"K1 dropout: a second seed changed only "
           f"{differ} of the outputs")
-    ms = time_ms(torch, lambda: ra.rel_attention_fwd(q, k, v, ek, ev, lens,
-                                                      **kw))
-    plain_ms = time_ms(torch, lambda: ra.rel_attention_plain(
-        q, k, v, ek, ev, lens, **kw))
+    times = timings(
+        torch, lambda: ra.rel_attention_fwd(q, k, v, ek, ev, lens, **kw),
+        lambda: ra.rel_attention_plain(q, k, v, ek, ev, lens, **kw))
     row = {"shape": f"[4, {t}, {c}] frame, dropout {rate}",
            "max_abs_err": err, "keep_rate": keep,
-           "second_seed_outputs_changed": differ, "ms": ms,
-           "plain_ms": plain_ms}
+           "second_seed_outputs_changed": differ, **times}
     phase("k1_dropout", **row)
     return row
 
 
 def check_rel_attention_bwd(torch, ra, dev):
     """K3 against autograd of K1's plain version at the frame and token
-    shapes, ragged lengths, a random g, dropout off and 0.1 (same seed)."""
+    shapes, ragged lengths, a random g, dropout off and 0.1 (same seed); a
+    second run on the same inputs must give the same bits."""
     gen = torch.Generator(device="cpu").manual_seed(13)
     c, heads, window = 192, 2, 4
     dk = c // heads
@@ -271,24 +335,30 @@ def check_rel_attention_bwd(torch, ra, dev):
             out, stats = ra.rel_attention_fwd(q, k, v, ek, ev, lens, **kw)
             got = ra.rel_attention_bwd(q, k, v, ek, ev, lens, g, out, stats,
                                        **kw)
+            again = ra.rel_attention_bwd(q, k, v, ek, ev, lens, g, out,
+                                         stats, **kw)
             ref = ra.rel_attention_bwd_plain(q, k, v, ek, ev, lens, g, **kw)
             torch.cuda.synchronize()
-            errs = {name: float((a - r).abs().max()) for name, a, r in zip(
-                ("dq", "dk", "dv", "d_emb_rel_k", "d_emb_rel_v"), got, ref)}
-            for name, a in zip(errs, got):
+            names = ("dq", "dk", "dv", "d_emb_rel_k", "d_emb_rel_v")
+            errs = {name: float((a - r).abs().max())
+                    for name, a, r in zip(names, got, ref)}
+            for name, a, b in zip(names, got, again):
                 check(bool(torch.isfinite(a).all()),
                       f"K3 {label} rate {rate}: {name} non-finite")
                 check(errs[name] <= TOL_KERNEL, f"K3 {label} rate {rate}: "
                       f"{name} max abs err {errs[name]} > {TOL_KERNEL}")
-            ms = time_ms(torch, lambda: ra.rel_attention_bwd(
-                q, k, v, ek, ev, lens, g, out, stats, **kw))
-            plain_ms = time_ms(torch, lambda: ra.rel_attention_bwd_plain(
-                q, k, v, ek, ev, lens, g, **kw))
+                check(torch.equal(a, b), f"K3 {label} rate {rate}: {name} "
+                      f"differs between two runs on the same inputs")
+            times = timings(
+                torch, lambda: ra.rel_attention_bwd(q, k, v, ek, ev, lens, g,
+                                                    out, stats, **kw),
+                lambda: ra.rel_attention_bwd_plain(q, k, v, ek, ev, lens, g,
+                                                   **kw))
             flops, nbytes = k3_work(lengths, t, c, heads, window)
-            b_ms, b_by = bound_ms(flops, nbytes)
             row = {"shape": f"[4, {t}, {c}] {label}", "dropout": rate,
-                   "max_abs_err": max(errs.values()), "errs": errs, "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "max_abs_err": max(errs.values()), "errs": errs,
+                   "bit_identical_rerun": True, **times,
+                   **bounds(flops, nbytes),
                    "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
             phase("k3_rel_attention_bwd", **row)
             rows.append(row)
@@ -341,11 +411,10 @@ def check_wavenet_stack(torch, ws, dev, n_layers, label, grads=False):
             check(grad_errs[name] <= tol, f"K2 {label} grad {name}: max abs "
                   f"err {grad_errs[name]} > {tol}")
         row["grad_errs"] = grad_errs
-    ms = time_ms(torch, lambda: ws.wavenet_stack_fwd(*args))
-    plain_ms = time_ms(torch, lambda: ws.wavenet_stack_plain(*args))
+    times = timings(torch, lambda: ws.wavenet_stack_fwd(*args),
+                    lambda: ws.wavenet_stack_plain(*args))
     flops, nbytes = k2_work(lengths, t, c, n_layers, k)
-    b_ms, b_by = bound_ms(flops, nbytes)
-    row.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+    row.update(**times, **bounds(flops, nbytes),
                gflop=flops / 1e9, mbytes=nbytes / 1e6)
     phase(f"k2_{label}", **row)
     return row
@@ -657,9 +726,14 @@ def main() -> int:
     logs = cuda_build.build_all()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "entry function" in ln or "registers" in ln
+                    or "spill" in ln]
              for name, log in logs.items()}
     phase("build", seconds=build_s, ptxas=ptxas)
+    # at the model's shapes: dk = 96, window 4; C = 192, K = 5
+    phase("kernel_resources",
+          rel_attention=cuda_build.kernel_info("rel_attention", 96, 4),
+          wavenet_stack=cuda_build.kernel_info("wavenet_stack", 192, 5))
 
     k1_rows = check_rel_attention(torch, ra, dev)
     k1_drop = check_k1_dropout(torch, ra, dev)
@@ -682,7 +756,9 @@ def main() -> int:
          "max_abs_err": max([r["max_abs_err"] for r in k1_rows]
                             + [k1_drop["max_abs_err"]]),
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+         "call_ms": k1["call_ms"], "plain_call_ms": k1["plain_call_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+         "bound_tc_ms": k1["bound_tc_ms"],
          "library_ms": None, "shape": k1["shape"],
          "synthesis_launches": synth_counts["rel_attention_fwd"]},
         {"name": "rel_attention_bwd", "route": "cuda",
@@ -691,18 +767,25 @@ def main() -> int:
          "launches": train_counts["rel_attention_bwd"],
          "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
          "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "call_ms": k3["call_ms"], "plain_call_ms": k3["plain_call_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
-         "library_ms": None, "shape": f"{k3['shape']}, dropout 0.1"},
+         "bound_tc_ms": k3["bound_tc_ms"],
+         "library_ms": None, "shape": f"{k3['shape']}, dropout 0.1",
+         "bit_identical_rerun": True},
         {"name": "wavenet_stack_fwd", "route": "cuda",
          "source": "visinger_tpu_torch/csrc/wavenet_stack.cu",
          "replaces": "visinger_tpu/ops/pallas/wavenet_kernel.py:115",
          "launches": train_counts["wavenet_stack_fwd"],
          "max_abs_err": max(k2_row["max_abs_err"], k2_post["max_abs_err"]),
          "ms": k2_post["ms"], "plain_ms": k2_post["plain_ms"],
+         "call_ms": k2_post["call_ms"],
+         "plain_call_ms": k2_post["plain_call_ms"],
          "bound_ms": k2_post["bound_ms"], "bound_by": k2_post["bound_by"],
+         "bound_tc_ms": k2_post["bound_tc_ms"],
          "library_ms": None, "shape": k2_post["shape"],
          "l4_ms": k2_row["ms"], "l4_plain_ms": k2_row["plain_ms"],
          "l4_bound_ms": k2_row["bound_ms"],
+         "l4_bound_tc_ms": k2_row["bound_tc_ms"],
          "synthesis_launches": synth_counts["wavenet_stack_fwd"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

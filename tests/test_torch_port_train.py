@@ -56,7 +56,7 @@ from visinger_tpu_torch.training import losses as PL
 from visinger_tpu_torch.training.train_state import (create_train_state,
                                                      init_adam,
                                                      make_optimizers)
-from visinger_tpu_torch.training.train_step import make_train_step
+from visinger_tpu_torch.training.train_step import TrainStep, make_train_step
 
 from test_torch_port_kernels import (LENGTHS, T_ATT, _attention_inputs,
                                      _pack_heads, load_port, max_err, t)
@@ -367,6 +367,31 @@ def test_optimizer_chain_matches_optax():
             p_opt.update(params, [torch.tensor(a) for a in grads], state)
             for i, p in enumerate(params):
                 assert max_err(p, jparams[str(i)]) < 1e-6, (step, i)
+
+
+# --- the batch ------------------------------------------------------------------
+
+def test_batch_dequantizes_int16_wavs_as_the_jax_step():
+    """int16 ``wavs`` (PCM) become float32 / 32767, as the JAX step's
+    ``astype(float32) / 32767.0``; float wavs pass unchanged; the integer
+    token arrays become int64."""
+    step = TrainStep.__new__(TrainStep)    # _batch needs only the device
+    step.device = torch.device("cpu")
+    rng = np.random.RandomState(16)
+    pcm = rng.randint(-32768, 32768, size=(2, 300)).astype(np.int16)
+    tokens = rng.randint(0, 40, size=(2, 7)).astype(np.int32)
+    got = step._batch({"wavs": pcm, "text_tokens": tokens,
+                       "mel_lengths": np.array([5, 3], np.int64)})
+    want = np.asarray(jnp.asarray(pcm).astype(jnp.float32) / 32767.0)
+    assert got["wavs"].dtype == torch.float32
+    assert np.array_equal(got["wavs"].numpy(), want)
+    assert got["text_tokens"].dtype == torch.int64
+    assert np.array_equal(got["text_tokens"].numpy(), tokens)
+    assert got["mel_lengths"].dtype == torch.int64
+    wav = rng.uniform(-1, 1, size=(2, 300)).astype(np.float32)
+    assert np.array_equal(step._batch({"wavs": wav})["wavs"].numpy(), wav)
+    assert torch.equal(step._batch({"wavs": torch.from_numpy(pcm)})["wavs"],
+                       got["wavs"])
 
 
 # --- the training branch and the train step ------------------------------------

@@ -11,176 +11,264 @@
 // outside [0, T) are zero, as in the TPU kernel's padded input.
 //
 // Layout: x, out [B, T, C]; mask [B, T]; w_in [L, K, C, 2C];
-// w_rs [L, C, 2C]; g_all [B, L, 2C]; b_rs [L, 2C].
-//
-// Design.  One block per (time tile of `tt` frames, batch item).  The tile is
-// loaded with an L*(K/2)-frame halo on each side, which is the stack's
-// receptive field, so every layer runs on the padded tile without touching
-// other blocks and the tt centre frames come out exact.  The activation
-// tile h, the gate tile and the skip sum stay in shared memory across all L
-// layers (~100 KB at C=192, tt=32, L=4; opt-in dynamic shared memory);
-// only the weights are read from global memory (L2-resident, each element
-// once per block and layer).  One thread owns an output channel and a
-// 16-frame register tile of both gate halves, so the tanh*sigmoid gate is
-// fused into the conv epilogue and the residual/skip update into the 1x1
-// epilogue.  The block is two-dimensional: x runs over output channels,
-// y over the 16-frame register tiles of the padded tile, so a block holds
-// C * ceil(R/16) threads (576 at C=192, tt=32, L=4) and enough warps to
-// hide the L2 latency of the weight reads.
+// w_rs [L, C, 2C]; g_all [B, L, 2C]; b_rs [L, 2C]; scratch h, z [B, T, C].
 //
 // Bound on the H100: ~2*B*T*(L*(K+1)*C*2C - C*C) flops (the last layer's
-// 1x1 is C -> C; its residual half of w_rs is zero padding) against ~1.5 MB
-// of weights per layer plus x/mask/out, so it is bound by operations; this
-// first version runs on the float32 CUDA cores (no tensor cores), the limit
-// it is measured against.
+// 1x1 is C -> C) against ~1.5 MB of weights per layer plus x/mask/out, so
+// it is bound by operations: 67 TFLOP/s on the float32 CUDA cores, 165 in
+// float32-accurate 3xTF32 on the tensor cores (tf32x3.cuh).
+//
+// Design.  A time tile that carried its L*(K/2)-frame halo through all
+// layers would recompute the halo (3x the work at L=16) and give only
+// (T/32) * B = 80 blocks, so the stack runs layer by layer over the whole
+// [B, T, C] activation instead: h, z and the skip sum (2 MB each at B=4,
+// T=640, C=192) stay resident in the 50 MB L2 between the launches.  Each layer is
+// two tensor-core GEMMs in 3xTF32, M = frames, N = 2C, tiles of 64 frames x
+// 64 columns, so (T/64) * (C/32) * B = 240 blocks of 128 threads each:
+//   (A) gate: depth K*C, done as K shifted taps over one shared-memory tile
+//       of 64 + K - 1 rows of h, loaded once with cp.async and read by all
+//       K taps.  A tile's 64 columns are the tanh columns of 32 channels
+//       and the sigmoid columns of the same 32, and each warp holds both
+//       halves of 16 channels, so the bias and the tanh * sigmoid gate run
+//       on the accumulators in registers; z is written out.
+//   (B) res/skip: depth C, the same tiling over z.  The epilogue applies
+//       h = (h + res) * mask on every layer but the last (the last layer
+//       computes the skip half only) and adds skip into the skip sum.
+// The weights stream through shared memory in 32-row chunks, a ring of
+// four loaded with cp.async, one barrier per chunk.  At C = 192, K = 5
+// (-Xptxas -v and cudaOccupancy, sm_90a): gate 136 registers, 90,176 B of
+// shared memory; res/skip 96 registers, 87,040 B; no spills; two blocks
+// resident per SM, so all 240 run in one wave.  On the H100, 128-frame
+// tiles with 8 warps and an 8-deep ring, or the two small products kept in
+// a long-lived accumulator, each moved the time by under 5% (PERF.md);
+// the three mma per product are the firm part of it, and wgmma is the next
+// step.  Every output element has one owning thread, so the result is the
+// same from run to run.  2*L launches from one C call.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int RC = 16;           // frames per register tile
-constexpr int MAX_THREADS = 576;  // caps registers at 113 a thread
-constexpr int TILE_FRAMES = 32;   // centre frames per block: 80 blocks at
-                                  // B=4, T=640
+using namespace tf32x3;
 
-__global__ void __launch_bounds__(MAX_THREADS) wavenet_stack_fwd_kernel(
-    const float* __restrict__ x, const float* __restrict__ mask,
-    const float* __restrict__ w_in, const float* __restrict__ g_all,
-    const float* __restrict__ w_rs, const float* __restrict__ b_rs,
-    float* __restrict__ out, int T, int C, int L, int K, int tt) {
+constexpr int TM = 64;          // frames per block tile
+constexpr int CH = 32;          // channels per block tile
+constexpr int TN = 2 * CH;      // columns per block tile: both halves
+constexpr int KC = 32;          // weight rows per streamed chunk
+constexpr int NSTAGE = 4;       // weight chunks in the ring
+constexpr int NTHREADS = 128;   // 4 warps: 2 (32 frames) x 2 (16 channels)
+constexpr int LDB = TN + 8;     // weight chunk row stride, 8 mod 32
+
+__host__ __device__ __forceinline__ int lda(int C) { return C + 4; }
+
+size_t gate_smem(int C, int K) {
+  return sizeof(float) * ((size_t)(TM + K - 1) * lda(C) + NSTAGE * KC * LDB);
+}
+size_t res_skip_smem(int C) {
+  return sizeof(float) * ((size_t)TM * lda(C) + NSTAGE * KC * LDB);
+}
+
+// rows [0, nrows) of the A tile <- frames r0 + r of item b of src [B, T, C],
+// zero outside [0, T)
+__device__ __forceinline__ void load_rows(float* As, const float* src, int b,
+                                          int r0, int nrows, int T, int C) {
+  const int vec = C / 4;
+  for (int idx = threadIdx.x; idx < nrows * vec; idx += NTHREADS) {
+    const int r = idx / vec, c4 = idx % vec, t = r0 + r;
+    const bool in = t >= 0 && t < T;
+    cp_async16(As + r * lda(C) + c4 * 4,
+               src + ((size_t)b * T + (in ? t : 0)) * C + c4 * 4, in);
+  }
+}
+
+// KC weight rows (row stride wld) -> Bs; local column lc < CH is column
+// col_a + lc, lc >= CH is col_b + lc - CH
+__device__ __forceinline__ void load_w(float* Bs, const float* W, int wld,
+                                       int col_a, int col_b) {
+  for (int idx = threadIdx.x; idx < KC * (TN / 4); idx += NTHREADS) {
+    const int r = idx / (TN / 4), lc = idx % (TN / 4) * 4;
+    const int col = lc < CH ? col_a + lc : col_b + lc - CH;
+    cp_async16(Bs + r * LDB + lc, W + (size_t)r * wld + col, true);
+  }
+}
+
+// acc[mt][nt] of warp (wm, wn): frames 32 wm + 16 mt; nt 0, 1 the first
+// half's columns 16 wn + 8 nt, nt 2, 3 the second half's CH + 16 wn + 8 (nt-2).
+// Runs the chunk loop: chunk ch covers weight rows [ch * KC, (ch+1) * KC),
+// i.e. tap ch / (C / KC), channels (ch % (C / KC)) * KC.  The caller has
+// issued (not committed) the A tile's copies.  With !first_half only the
+// second half is computed.
+__device__ __forceinline__ void gemm(float (&acc)[2][4][4], const float* As,
+                                     int C, int nchunks, const float* W,
+                                     int col_a, int col_b, float* Bs,
+                                     bool first_half) {
+  const int warp = threadIdx.x >> 5, wm = warp & 1, wn = warp >> 1;
+  const int wld = 2 * C, cpt = C / KC, ld = lda(C);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[mt][nt][v] = 0.f;
+
+  // a ring of NSTAGE chunk buffers with NSTAGE - 1 chunks in flight and
+  // one barrier per chunk; every step commits a group (empty near the end)
+  // so that wait<NSTAGE - 2> always means "chunk ch has landed"
+  for (int ch = 0; ch < NSTAGE - 1; ++ch) {
+    if (ch < nchunks)
+      load_w(Bs + ch * KC * LDB, W + (size_t)ch * KC * wld, wld, col_a, col_b);
+    cp_async_commit();
+  }
+  for (int ch = 0; ch < nchunks; ++ch) {
+    cp_async_wait<NSTAGE - 2>();
+    __syncthreads();  // chunk ch landed; every warp is done with ch - 1
+    const int next = ch + NSTAGE - 1;
+    if (next < nchunks)
+      load_w(Bs + next % NSTAGE * KC * LDB, W + (size_t)next * KC * wld, wld,
+             col_a, col_b);
+    cp_async_commit();
+    const float* Bc = Bs + ch % NSTAGE * KC * LDB;
+    const int tap = ch / cpt, k0 = (ch % cpt) * KC;
+#pragma unroll
+    for (int kk = 0; kk < KC; kk += 8) {
+      FragA a[2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        a[mt] = load_a(As + (32 * wm + 16 * mt + tap) * ld + k0 + kk, ld);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        if (nt < 2 && !first_half) continue;
+        const int col = nt < 2 ? 16 * wn + 8 * nt : CH + 16 * wn + 8 * (nt - 2);
+        const FragB bf = load_b(Bc + kk * LDB + col, LDB);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) mma3(acc[mt][nt], a[mt], bf);
+      }
+    }
+  }
+}
+
+// (A) z = tanh(a[:C]) * sigmoid(a[C:]) for one layer
+__global__ void __launch_bounds__(NTHREADS) wavenet_gate_kernel(
+    const float* __restrict__ h, const float* __restrict__ w,
+    const float* __restrict__ g_all, int g_stride, float* __restrict__ z,
+    int T, int C, int K) {
   extern __shared__ float smem[];
-  const int half = K / 2;
-  const int halo = L * half;
-  const int R = tt + 2 * halo;              // padded tile rows
-  const int Rp = (R + RC - 1) / RC * RC;    // rounded to whole register tiles
-  const int C2 = 2 * C;
-  float* Hs = smem;                  // [Rp + 2*half][C]; tile row r at r + half
-  float* Gs = Hs + (Rp + 2 * half) * C;  // [Rp][C] gates
-  float* Ss = Gs + Rp * C;               // [tt][C] skip sum
-  float* Ms = Ss + tt * C;               // [Rp] mask
+  float* As = smem;                          // [TM + K - 1][lda(C)]
+  float* Bs = As + (TM + K - 1) * lda(C);    // [NSTAGE][KC][LDB]
+  const int t0 = blockIdx.x * TM, o0 = blockIdx.y * CH, b = blockIdx.z;
+  load_rows(As, h, b, t0 - K / 2, TM + K - 1, T, C);
+  float acc[2][4][4];
+  gemm(acc, As, C, K * C / KC, w, o0, C + o0, Bs, true);
 
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nt = blockDim.x * blockDim.y;
-  const int row0 = threadIdx.y * RC, row_step = blockDim.y * RC;
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * tt - halo;  // frame of tile row 0
-
-  for (int idx = tid; idx < (Rp + 2 * half) * C; idx += nt) {
-    const int r = idx / C - half, ch = idx % C, t = t0 + r;
-    const bool in = r >= 0 && r < R && t >= 0 && t < T;
-    Hs[idx] = in ? x[((size_t)b * T + t) * C + ch] : 0.f;
-  }
-  for (int r = tid; r < Rp; r += nt) {
-    const int t = t0 + r;
-    Ms[r] = (r < R && t >= 0 && t < T) ? mask[(size_t)b * T + t] : 0.f;
-  }
-  for (int idx = tid; idx < tt * C; idx += nt) Ss[idx] = 0.f;
-  __syncthreads();
-
-  for (int l = 0; l < L; ++l) {
-    const float* wl = w_in + (size_t)l * K * C * C2;
-    const float* gl = g_all + ((size_t)b * L + l) * C2;
-    for (int o = threadIdx.x; o < C; o += blockDim.x) {
-      for (int rc = row0; rc < Rp; rc += row_step) {
-        float aa[RC], ab[RC];
-        const float ga = gl[o], gb = gl[C + o];
+  const int warp = threadIdx.x >> 5, wm = warp & 1, wn = warp >> 1;
+  const float* gl = g_all + (size_t)b * g_stride;
 #pragma unroll
-        for (int j = 0; j < RC; ++j) { aa[j] = ga; ab[j] = gb; }
-        for (int tap = 0; tap < K; ++tap) {
-          const float* wt = wl + (size_t)tap * C * C2;
-          // tile row rc + j + tap - half lives at smem row rc + j + tap
-          const float* hb = Hs + (rc + tap) * C;
-#pragma unroll 4
-          for (int c = 0; c < C; ++c) {
-            const float wa = __ldg(wt + (size_t)c * C2 + o);
-            const float wb = __ldg(wt + (size_t)c * C2 + C + o);
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-            for (int j = 0; j < RC; ++j) {
-              const float hv = hb[j * C + c];
-              aa[j] = fmaf(hv, wa, aa[j]);
-              ab[j] = fmaf(hv, wb, ab[j]);
-            }
-          }
-        }
+    for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-        for (int j = 0; j < RC; ++j)
-          Gs[(rc + j) * C + o] = tanhf(aa[j]) * (1.f / (1.f + expf(-ab[j])));
+      for (int v = 0; v < 4; ++v) {
+        const int t = t0 + 32 * wm + 16 * mt + lane_g() + (v >> 1) * 8;
+        const int o = o0 + 16 * wn + 8 * nt + 2 * lane_c() + (v & 1);
+        if (t >= T) continue;
+        const float ta = tanhf(acc[mt][nt][v] + gl[o]);
+        const float sg = 1.f / (1.f + expf(-(acc[mt][nt + 2][v] + gl[C + o])));
+        z[((size_t)b * T + t) * C + o] = ta * sg;
       }
-    }
-    __syncthreads();  // all gates written; all reads of h for this layer done
+}
 
-    const float* wr = w_rs + (size_t)l * C * C2;
-    const float* br = b_rs + (size_t)l * C2;
-    const bool last = l == L - 1;
-    for (int o = threadIdx.x; o < C; o += blockDim.x) {
-      for (int rc = row0; rc < Rp; rc += row_step) {
-        float ar[RC], as[RC];
-        const float bres = br[o], bskip = br[C + o];
+// (B) rs = z @ w_rs + b_rs; h = (h_in + rs[:C]) * mask unless last;
+// out = (first ? 0 : out) + rs[C:].  h_in may alias h_out: each element is
+// read and written by the same thread.
+__global__ void __launch_bounds__(NTHREADS) wavenet_res_skip_kernel(
+    const float* __restrict__ z, const float* __restrict__ w,
+    const float* __restrict__ bias, const float* h_in, float* h_out,
+    const float* __restrict__ mask, float* __restrict__ out, int T, int C,
+    int first, int last) {
+  extern __shared__ float smem[];
+  float* As = smem;                 // [TM][lda(C)]
+  float* Bs = As + TM * lda(C);     // [NSTAGE][KC][LDB]
+  const int t0 = blockIdx.x * TM, o0 = blockIdx.y * CH, b = blockIdx.z;
+  load_rows(As, z, b, t0, TM, T, C);
+  float acc[2][4][4];
+  gemm(acc, As, C, C / KC, w, o0, C + o0, Bs, !last);
+
+  const int warp = threadIdx.x >> 5, wm = warp & 1, wn = warp >> 1;
 #pragma unroll
-        for (int j = 0; j < RC; ++j) { ar[j] = bres; as[j] = bskip; }
-        const float* zb = Gs + rc * C;
-#pragma unroll 4
-        for (int c = 0; c < C; ++c) {
-          const float wres = __ldg(wr + (size_t)c * C2 + o);
-          const float wskip = __ldg(wr + (size_t)c * C2 + C + o);
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-          for (int j = 0; j < RC; ++j) {
-            const float zv = zb[j * C + c];
-            ar[j] = fmaf(zv, wres, ar[j]);
-            as[j] = fmaf(zv, wskip, as[j]);
-          }
-        }
+    for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-        for (int j = 0; j < RC; ++j) {
-          const int r = rc + j;
-          if (r >= halo && r < halo + tt) Ss[(r - halo) * C + o] += as[j];
-          if (!last && r < R) {
-            float* hp = Hs + (r + half) * C + o;
-            *hp = (*hp + ar[j]) * Ms[r];
-          }
-        }
+      for (int v = 0; v < 4; ++v) {
+        const int t = t0 + 32 * wm + 16 * mt + lane_g() + (v >> 1) * 8;
+        const int o = o0 + 16 * wn + 8 * nt + 2 * lane_c() + (v & 1);
+        if (t >= T) continue;
+        const size_t idx = ((size_t)b * T + t) * C + o;
+        if (!last)
+          h_out[idx] = (h_in[idx] + acc[mt][nt][v] + bias[o])
+                       * mask[(size_t)b * T + t];
+        const float skip = acc[mt][nt + 2][v] + bias[C + o];
+        out[idx] = first ? skip : out[idx] + skip;
       }
-    }
-    __syncthreads();  // h updated before the next layer's conv reads it
-  }
+}
 
-  for (int idx = tid; idx < tt * C; idx += nt) {
-    const int r = idx / C, ch = idx % C, t = blockIdx.x * tt + r;
-    if (t < T) out[((size_t)b * T + t) * C + ch] = Ss[idx];
-  }
+bool bad_args(int B, int T, int C, int L, int K) {
+  return B <= 0 || T <= 0 || C <= 0 || C % CH != 0 || L <= 0 || K <= 0 ||
+         K % 2 == 0;
 }
 
 }  // namespace
 
+// One stack call: 2*L launches on `stream`.  h and z are [B, T, C] scratch
+// allocated by the caller; out is the skip sum.
 extern "C" int wavenet_stack_fwd(const float* x, const float* mask,
                                  const float* w_in, const float* g_all,
                                  const float* w_rs, const float* b_rs,
-                                 float* out, int B, int T, int C, int L, int K,
-                                 cudaStream_t stream) {
-  if (B <= 0 || T <= 0 || C <= 0 || L <= 0 || K <= 0 || K % 2 == 0)
-    return (int)cudaErrorInvalidValue;
-  const int tt = TILE_FRAMES;
-  // x: one thread per output channel (whole warps, at most 256); y: as many
-  // 16-frame register tiles as MAX_THREADS leaves room for
-  const int cw = (C + 31) / 32 * 32;
-  const int threads = cw < 256 ? cw : 256;
-  const int half = K / 2;
-  const int R = tt + 2 * L * half;
-  const int Rp = (R + RC - 1) / RC * RC;
-  const size_t smem = sizeof(float) *
-      ((size_t)(Rp + 2 * half) * C + (size_t)Rp * C + (size_t)tt * C + Rp);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
+                                 float* out, float* h, float* z, int B, int T,
+                                 int C, int L, int K, cudaStream_t stream) {
+  if (bad_args(B, T, C, L, K)) return (int)cudaErrorInvalidValue;
+  const size_t smem_a = gate_smem(C, K), smem_b = res_skip_smem(C);
+  if (smem_a > 232448 || smem_b > 232448) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      wavenet_stack_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      wavenet_gate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_a);
   if (err != cudaSuccess) return (int)err;
-  const int row_tiles = Rp / RC;
-  const int ny = row_tiles < MAX_THREADS / threads ? row_tiles
-                                                   : MAX_THREADS / threads;
-  const dim3 grid((T + tt - 1) / tt, B);
-  const dim3 block(threads, ny > 0 ? ny : 1);
-  wavenet_stack_fwd_kernel<<<grid, block, smem, stream>>>(
-      x, mask, w_in, g_all, w_rs, b_rs, out, T, C, L, K, tt);
-  return (int)cudaGetLastError();
+  err = cudaFuncSetAttribute(wavenet_res_skip_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_b);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((T + TM - 1) / TM, C / CH, B);
+  const size_t c2 = 2 * (size_t)C;
+  for (int l = 0; l < L; ++l) {
+    const float* h_src = l == 0 ? x : h;
+    wavenet_gate_kernel<<<grid, NTHREADS, smem_a, stream>>>(
+        h_src, w_in + (size_t)l * K * C * c2, g_all + l * c2, (int)(L * c2),
+        z, T, C, K);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    wavenet_res_skip_kernel<<<grid, NTHREADS, smem_b, stream>>>(
+        z, w_rs + (size_t)l * C * c2, b_rs + l * c2, h_src, h, mask, out, T,
+        C, l == 0, l == L - 1);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}
+
+// Registers, dynamic shared memory and resident blocks per SM of kernel i
+// (0 gate, 1 res/skip) at channel width C and kernel size K; its name into
+// name[0:n).  Returns a cudaError_t, or -1 past the end.
+extern "C" int wavenet_stack_info(int i, int C, int K, char* name, int n,
+                                  int* regs, int* smem, int* blocks) {
+  if (i == 0)
+    return kernel_info((const void*)wavenet_gate_kernel, "wavenet_gate_kernel",
+                       NTHREADS, gate_smem(C, K), name, n, regs, smem, blocks);
+  if (i == 1)
+    return kernel_info((const void*)wavenet_res_skip_kernel,
+                       "wavenet_res_skip_kernel", NTHREADS, res_skip_smem(C),
+                       name, n, regs, smem, blocks);
+  return -1;
 }

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 by ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own shared
 library under ``build/visinger_tpu_torch/`` at the repository root (listed
-in ``.gitignore``), then loaded with ``ctypes``.  Nothing is built when a
+in ``.gitignore``), then loaded with ``ctypes``; it is rebuilt when the
+source or a shared ``csrc/*.cuh`` header is newer than the library.  Nothing is built when a
 module is imported; ``build_all`` starts one ``nvcc`` per source at once.
 """
 
@@ -35,8 +36,13 @@ def _paths(name: str) -> tuple[Path, Path]:
 
 
 def _stale(name: str) -> bool:
+    """True when the library is missing or older than its source or any
+    header under ``csrc/`` (the kernels share ``tf32x3.cuh``)."""
     src, lib = _paths(name)
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in (src, *CSRC.glob("*.cuh")))
+    return lib.stat().st_mtime < newest
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path]:
@@ -74,6 +80,29 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_paths(name)[1]))
         _libs[name] = lib
     return lib
+
+
+def kernel_info(name: str, *shape: int) -> list[dict]:
+    """Registers, dynamic shared memory (bytes) and resident blocks per SM
+    of each kernel in library ``name`` at the shape arguments its
+    ``<name>_info`` C function takes."""
+    fn = getattr(load(name), f"{name}_info")
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] * (1 + len(shape))
+                   + [ctypes.c_char_p, ctypes.c_int]
+                   + [ctypes.POINTER(ctypes.c_int)] * 3)
+    rows = []
+    while True:
+        label = ctypes.create_string_buffer(96)
+        regs, smem, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        err = fn(len(rows), *shape, label, len(label), ctypes.byref(regs),
+                 ctypes.byref(smem), ctypes.byref(blocks))
+        if err == -1:
+            return rows
+        check(err, f"{name}_info")
+        rows.append({"kernel": label.value.decode(), "registers": regs.value,
+                     "smem_bytes": smem.value,
+                     "blocks_per_sm": blocks.value})
 
 
 def check(err: int, name: str) -> None:

@@ -6,8 +6,10 @@ side ``_attn_bwd_rule``); entry ``rel_attention``.  Both CUDA kernels are in
 ``csrc/rel_attention.cu``, whose note gives the design.  On the H100 both are
 bound by operations (forward ~4·H·dk·Σ_b len_b² flops — a key at or past its
 item's length gets no weight, and every masked row is the same mean of v —
-against a few MB of q/k/v), and these first kernels run on the float32 CUDA
-cores.
+against a few MB of q/k/v).  K1 runs on the float32 CUDA cores; K3's
+products run on the tensor cores in float32-accurate 3xTF32
+(``csrc/tf32x3.cuh``), with scratch sized by the CUDA source
+(``rel_attention_bwd_scratch``).
 
 Attention dropout keeps an entry when a counter-based hash of (seed, b·H+h,
 i, j) is at least ⌊rate·2³²⌋ and scales kept entries by 1/(1−rate); the hash
@@ -212,28 +214,31 @@ def rel_attention_bwd(q, k, v, emb_rel_k, emb_rel_v, lengths, g, out, stats,
         "q": q, "k": k, "v": v, "emb_rel_k": emb_rel_k,
         "emb_rel_v": emb_rel_v, "g": g, "out": out, "stats": stats},
         lengths, seed, rate, window)
-    heads, nb = c // dk, 2 * window + 1
-    if stats.shape != (b, heads, t, 2):
+    if stats.shape != (b, c // dk, t, 2):
         raise ValueError("rel_attention_bwd: stats must be [B, H, T, 2]")
-    fn = cuda_build.load("rel_attention").rel_attention_bwd
+    lib = cuda_build.load("rel_attention")
+    size = lib.rel_attention_bwd_scratch
+    size.restype = ctypes.c_longlong
+    size.argtypes = [ctypes.c_int] * 5
+    n_scratch = size(b, t, c, dk, window)
+    if n_scratch < 0:
+        raise ValueError(f"rel_attention_bwd: head width {dk} must be a "
+                         f"multiple of 8")
+    fn = lib.rel_attention_bwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 6 + _DROP_TYPES
-                   + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                    + [ctypes.c_float, ctypes.c_void_p])
     dq, dk_, dv = (torch.empty_like(q) for _ in range(3))
     dek = torch.empty_like(emb_rel_k)
     dev = torch.empty_like(emb_rel_v)
-    n_blk = b * heads * (-(-t // 32))
-    d_buf = torch.empty(b, heads, t, device=q.device)
-    dek_part = torch.empty(n_blk, nb * dk, device=q.device)
-    dev_part = torch.empty(n_blk, nb * dk, device=q.device)
+    scratch = torch.empty(n_scratch, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), emb_rel_k.data_ptr(),
              emb_rel_v.data_ptr(), lengths.data_ptr(), *_drop_args(seed, rate),
              g.data_ptr(), out.data_ptr(), stats.data_ptr(), dq.data_ptr(),
              dk_.data_ptr(), dv.data_ptr(), dek.data_ptr(), dev.data_ptr(),
-             d_buf.data_ptr(), dek_part.data_ptr(), dev_part.data_ptr(),
-             b, t, c, dk, window, float(scale), stream)
+             scratch.data_ptr(), b, t, c, dk, window, float(scale), stream)
     cuda_build.check(err, "rel_attention_bwd")
     bwd_launches += 1
     return dq, dk_, dv, dek, dev

@@ -3,16 +3,18 @@ version under autograd, as the JAX ``_fused_stack_bwd`` does).
 
 Replaces ``visinger_tpu/ops/pallas/wavenet_kernel.py::_wavenet_kernel``
 (host side ``_pallas_forward``, entry ``wavenet_fused_forward``).  The CUDA
-kernel is ``csrc/wavenet_stack.cu``; its note gives the design.  On the H100
-the function is bound by operations (~2·B·T·(L·(K+1)·C·2C − C·C) flops —
-the last layer's 1x1 is C -> C — against ~1.5 MB of weights per layer),
-and this first kernel runs on the float32 CUDA cores.
+kernel is ``csrc/wavenet_stack.cu``; its note gives the design: layer by
+layer over the whole activation, two tensor-core GEMMs per layer in
+float32-accurate 3xTF32 (``csrc/tf32x3.cuh``).  On the H100 the function
+is bound by operations (~2·B·T·(L·(K+1)·C·2C − C·C) flops — the last
+layer's 1x1 is C -> C — against ~1.5 MB of weights per layer).
 
 ``wavenet_stack`` is the entry point, differentiable: on a CPU tensor it runs
 ``wavenet_stack_plain`` under ordinary autograd; on a CUDA tensor its forward
 launches the kernel (or raises) and its backward differentiates
 ``wavenet_stack_plain`` recomputed from the saved inputs
-(``_WaveNetStack``).  ``launches`` counts kernel launches.
+(``_WaveNetStack``).  ``launches`` counts stack calls on the card (each
+runs 2·L kernel launches).
 """
 
 from __future__ import annotations
@@ -80,19 +82,22 @@ def wavenet_stack_fwd(x, w_in, b_in, w_rs, b_rs, g_bias, mask):
                              f"{tuple(a.shape)} != {shapes[name]}")
     if k % 2 == 0:
         raise ValueError("wavenet_stack_fwd: kernel size must be odd")
+    if c % 32:
+        raise ValueError(f"wavenet_stack_fwd: channels {c} must be a "
+                         f"multiple of 32")
     x, w_in, w_rs, b_rs, mask = (a.contiguous()
                                  for a in (x, w_in, w_rs, b_rs, mask))
     g_all = _bias(b_in, g_bias, b).contiguous()
     lib = cuda_build.load("wavenet_stack")
     fn = lib.wavenet_stack_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
-    out = torch.empty_like(x)
+    out, h, z = (torch.empty_like(x) for _ in range(3))  # h, z: scratch
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), mask.data_ptr(), w_in.data_ptr(), g_all.data_ptr(),
-             w_rs.data_ptr(), b_rs.data_ptr(), out.data_ptr(),
-             b, t, c, n_layers, k, stream)
+             w_rs.data_ptr(), b_rs.data_ptr(), out.data_ptr(), h.data_ptr(),
+             z.data_ptr(), b, t, c, n_layers, k, stream)
     cuda_build.check(err, "wavenet_stack_fwd")
     launches += 1
     return out

@@ -47,11 +47,17 @@ class TrainStep:
         self.opt_g, self.opt_d = make_optimizers(cfg)
 
     def _batch(self, batch: dict) -> dict:
+        """The batch as tensors on the step's device: float arrays as
+        float32, int16 ``wavs`` (PCM) dequantized to float32 / 32767 as
+        the JAX step does, every other integer array as int64."""
         out = {}
         for k, v in batch.items():
             t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
                                 else v, device=self.device)
-            out[k] = t.long() if not t.is_floating_point() else t.float()
+            if k == "wavs" and t.dtype == torch.int16:
+                out[k] = t.float() / 32767.0
+            else:
+                out[k] = t.long() if not t.is_floating_point() else t.float()
         return out
 
     def generator_loss(self, state: TrainState, batch: dict, eps_q=None,
