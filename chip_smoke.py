@@ -14,10 +14,16 @@ Phases, each printing a line; any failure raises and exits nonzero:
      source, in parallel); print each kernel's registers and spills
      (``-Xptxas -v``) and its dynamic shared memory and resident blocks per
      SM at the model's shapes;
-  3. K1 (relative attention) against its plain version at the frame-rate
-     shape [4, 640, 192] and the token-rate shape [4, 192, 192], 2 heads,
-     ragged lengths; then with dropout 0.1 against the plain version with
-     the same seed, its keep rate and a second seed's different mask;
+  3. K1 (relative attention) against its plain version, out and each
+     row's softmax max and sum (which K3 reads), at the frame-rate shape
+     [4, 640, 192], the token-rate shape [4, 192, 192], a ragged
+     [4, 637, 192] (lengths 637, 600, 64, 1), and head widths 64 and 128
+     (K1's generic build), 2 heads; beside its times,
+     ``scaled_dot_product_attention`` on the same q, k, v with the band
+     bias and mask as an additive float mask (``sdpa_partial_ms``, a
+     yardstick: it lacks the band-column term); then with dropout 0.1
+     against the plain version with the same seed, its keep rate and a
+     second seed's different mask;
   4. K3 (attention backward) against autograd of the plain version at both
      shapes, dropout off and 0.1, with a random g; a second run on the same
      inputs must give bit-identical gradients;
@@ -80,6 +86,11 @@ TOL_GRAD_REL = 1e-2
 ZERO_GRAD = ".conv_k.bias"
 TOL_ZERO_GRAD = 1e-4
 KEEP_TOL = 0.005         # K1 dropout 0.1: keep rate within 0.9 +- this
+# K1's stats (each row's score max and sum) against the plain ones, relative
+# to max(1, |plain|): an error d in the max moves K3's p = exp(s - max) / sum
+# by d of itself, so below 1 the max is held to 1e-5 absolute; the sum is
+# at least 1 (the max's own term)
+TOL_STATS_REL = 1e-5
 VOCABS = (60, 117, 98)   # as bench.py's synthesis benchmark
 
 
@@ -232,32 +243,75 @@ def ragged_mask(torch, lengths, t, dev):
         ..., None]
 
 
+def stats_err(got, ref) -> float:
+    """Largest error of K1's stats against the plain ones, relative to
+    max(1, |plain|)."""
+    return float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max())
+
+
+def sdpa_partial_ms(torch, ra, q, k, v, ek, lens, window, scale) -> float:
+    """Device ms of ``scaled_dot_product_attention`` on K1's q, k, v with the
+    band bias and the length mask as one additive float mask: a yardstick
+    only, since it lacks the band-column term and adds -1e4 where K1 sets
+    it (the port never calls it)."""
+    b, t, c = q.shape
+    dk = ek.shape[1]
+    qh, kh, vh = (a.reshape(b, t, c // dk, dk).transpose(1, 2).contiguous()
+                  for a in (q, k, v))
+    idx = torch.arange(t, device=q.device)
+    off = idx[None, :] - idx[:, None]
+    rel = (qh @ ek.t()) * scale
+    bias = torch.gather(rel, -1, (off + window).clamp(0, 2 * window).expand(
+        b, c // dk, t, t)) * (off.abs() <= window)
+    valid = idx[None, :] < lens[:, None].long()
+    valid = valid[:, None, :, None] & valid[:, None, None, :]
+    mask = (bias + torch.where(valid, 0.0, ra.MASK_VAL)).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return device_ms(torch, lambda: sdpa(qh, kh, vh, attn_mask=mask,
+                                         scale=scale))
+
+
 def check_rel_attention(torch, ra, dev):
-    """K1 against its plain version at the frame and token shapes."""
+    """K1 against its plain version, out and stats, at the frame and token
+    shapes, a ragged shape whose T is not a multiple of the tiles (lengths
+    down to 1) and head widths 64 and 128."""
     gen = torch.Generator(device="cpu").manual_seed(1)
-    c, heads, window = 192, 2, 4
-    dk = c // heads
+    heads, window = 2, 4
     rows = []
-    for label, t, lengths in (("frame", 640, [640, 600, 517, 333]),
-                              ("token", 192, [192, 180, 151, 97])):
-        q, k, v = (torch.randn(4, t, c, generator=gen).to(dev)
+    for label, t, c, lengths in (
+            ("frame", 640, 192, [640, 600, 517, 333]),
+            ("token", 192, 192, [192, 180, 151, 97]),
+            ("ragged", 637, 192, [637, 600, 64, 1]),
+            # head widths other than 96 take K1's generic build
+            ("dk 64", 640, 128, [640, 600, 517, 333]),
+            ("dk 128", 100, 256, [100, 37])):
+        dk = c // heads
+        q, k, v = (torch.randn(len(lengths), t, c, generator=gen).to(dev)
                    for _ in range(3))
         ek, ev = (torch.randn(2 * window + 1, dk, generator=gen).mul(
             dk ** -0.5).to(dev) for _ in range(2))
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         kw = dict(window=window, scale=dk ** -0.5)
-        out, _ = ra.rel_attention_fwd(q, k, v, ek, ev, lens, **kw)
-        ref = ra.rel_attention_plain(q, k, v, ek, ev, lens, **kw)
+        out, stats = ra.rel_attention_fwd(q, k, v, ek, ev, lens, **kw)
+        ref, ref_stats = ra.rel_attention_plain(q, k, v, ek, ev, lens, **kw,
+                                                with_stats=True)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
+        serr = stats_err(stats, ref_stats)
         check(bool(torch.isfinite(out).all()), f"K1 {label}: non-finite")
         check(err <= TOL_KERNEL, f"K1 {label}: max abs err {err} > {TOL_KERNEL}")
+        check(serr <= TOL_STATS_REL, f"K1 {label}: stats err {serr} > "
+              f"{TOL_STATS_REL}")
         times = timings(
             torch, lambda: ra.rel_attention_fwd(q, k, v, ek, ev, lens, **kw),
             lambda: ra.rel_attention_plain(q, k, v, ek, ev, lens, **kw))
         flops, nbytes = k1_work(lengths, t, c, heads, window)
-        row = {"shape": f"[4, {t}, {c}] {label}", "max_abs_err": err,
-               **times, **bounds(flops, nbytes),
+        row = {"shape": f"[{len(lengths)}, {t}, {c}] {label}",
+               "lengths": lengths,
+               "max_abs_err": err, "stats_err": serr, **times,
+               "sdpa_partial_ms": sdpa_partial_ms(torch, ra, q, k, v, ek,
+                                                  lens, window, dk ** -0.5),
+               **bounds(flops, nbytes),
                "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
         phase("k1_rel_attention", **row)
         rows.append(row)
@@ -284,12 +338,16 @@ def check_k1_dropout(torch, ra, dev):
     lens = torch.tensor([640, 600, 517, 333], dtype=torch.int32, device=dev)
     seed = torch.tensor([12345], dtype=torch.int32, device=dev)
     kw = dict(window=window, scale=dk ** -0.5, seed=seed, rate=rate)
-    out, _ = ra.rel_attention_fwd(q, k, v, ek, ev, lens, **kw)
-    ref = ra.rel_attention_plain(q, k, v, ek, ev, lens, **kw)
+    out, stats = ra.rel_attention_fwd(q, k, v, ek, ev, lens, **kw)
+    ref, ref_stats = ra.rel_attention_plain(q, k, v, ek, ev, lens, **kw,
+                                            with_stats=True)
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
+    serr = stats_err(stats, ref_stats)
     check(bool(torch.isfinite(out).all()), "K1 dropout: non-finite")
     check(err <= TOL_KERNEL, f"K1 dropout: max abs err {err} > {TOL_KERNEL}")
+    check(serr <= TOL_STATS_REL, f"K1 dropout: stats err {serr} > "
+          f"{TOL_STATS_REL}")
     full = torch.full((4,), t, dtype=torch.int32, device=dev)
     zeros, ones = torch.zeros_like(q), torch.ones_like(v)
     no_band = torch.zeros_like(ev)
@@ -310,7 +368,7 @@ def check_k1_dropout(torch, ra, dev):
         torch, lambda: ra.rel_attention_fwd(q, k, v, ek, ev, lens, **kw),
         lambda: ra.rel_attention_plain(q, k, v, ek, ev, lens, **kw))
     row = {"shape": f"[4, {t}, {c}] frame, dropout {rate}",
-           "max_abs_err": err, "keep_rate": keep,
+           "max_abs_err": err, "stats_err": serr, "keep_rate": keep,
            "second_seed_outputs_changed": differ, **times}
     phase("k1_dropout", **row)
     return row
@@ -746,6 +804,7 @@ def main() -> int:
     synth_counts = synthesis(torch, ra, ws, dev, args.profile)
 
     k1 = k1_rows[0]  # the frame-rate shape: 12 of the 18 layers per step
+    k1_token = k1_rows[1]
     k3 = next(r for r in k3_rows if r["shape"].endswith("frame")
               and r["dropout"] > 0)
     kernels = [
@@ -759,7 +818,12 @@ def main() -> int:
          "call_ms": k1["call_ms"], "plain_call_ms": k1["plain_call_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
          "bound_tc_ms": k1["bound_tc_ms"],
-         "library_ms": None, "shape": k1["shape"],
+         "library_ms": None, "sdpa_partial_ms": k1["sdpa_partial_ms"],
+         "shape": k1["shape"],
+         "stats_err": max([r["stats_err"] for r in k1_rows]
+                          + [k1_drop["stats_err"]]),
+         "token_ms": k1_token["ms"], "token_plain_ms": k1_token["plain_ms"],
+         "token_bound_tc_ms": k1_token["bound_tc_ms"],
          "synthesis_launches": synth_counts["rel_attention_fwd"]},
         {"name": "rel_attention_bwd", "route": "cuda",
          "source": "visinger_tpu_torch/csrc/rel_attention.cu",

@@ -13,16 +13,29 @@ swapped in for the checkout's build between timings.  Two kinds:
   plain versions are printed): ``k2_tm128`` (128-frame tiles, 8 warps, an
   8-deep weight ring, 120 blocks), ``k2_split_acc`` (the two small 3xTF32
   products summed in a long-lived accumulator, only hi*hi flushed per
-  k-step);
+  k-step); K1 with fewer key splits a block (``k1_splits4``, ``k1_splits2``,
+  ``k1_splits1``: 4, 2 or 1 splits instead of the checkout's 8, with 32-
+  and 16-row tiles alike), K1 with 16-row or 32-row tiles at every shape
+  (``k1_rows16``, ``k1_rows32``; the checkout picks by T), K1's generic
+  build at dk = 96 (``k1_generic``: the head width not a compile-time
+  constant), K1 allowed 255
+  registers a thread instead of 128 (``k1_regs255``), and the mma
+  instructions without ``volatile`` (``mma_nv``, every kernel);
 - ablations, which switch a part off to show what it costs (their outputs
   are wrong on purpose): ``no_split`` (operands passed to the tensor cores
   unsplit), ``mma_1x`` (one TF32 product instead of three), ``no_mma`` (no
   tensor-core products), ``k3_no_sdp`` (no S and dP products in K3's dk/dv
   pass), ``k3_no_dkv`` (no dK and dV products), ``k3_no_ew`` (no
-  elementwise p / dropout / dS work).
+  elementwise p / dropout / dS work), ``k1_no_ew`` (no exp in K1's online
+  softmax and no dropout hash), ``k1_no_load`` (K1 loads only its first
+  key/value tile), ``k1_one_tile`` (K1's key loop stops after one tile: the
+  cost outside the loop), ``k1_no_merge`` (K1 stops after its key loop:
+  no merge and no output), ``k1_launch_only`` (every K1 block returns at
+  once: the launch and the empty grid).
 
-Cases: K3 (dropout 0.1) at [4, 640, 192] and [4, 192, 192], K2 at
-x [4, 640, 192] with L=4 and L=16, ragged lengths as in ``chip_smoke.py``.
+Cases: K1 at [4, 640, 192] (dropout 0 and 0.1) and [4, 192, 192], K3
+(dropout 0.1) at [4, 640, 192] and [4, 192, 192], K2 at x [4, 640, 192]
+with L=4 and L=16, ragged lengths as in ``chip_smoke.py``.
 Device times (``chip_smoke.device_ms``, median of 30) in turns: the
 checkout's kernels, each variant, the variants in reverse, the checkout's
 again.  Then a profiler table of the checkout's kernels per case.  Prints
@@ -97,6 +110,35 @@ VARIANTS = {
     "k3_no_ew": [(R, "      if (i < T && j < T) {\n        const int off = j - i;",
                   "      pd = s[e];\n      ds = dp[e];\n"
                   "      if (false) {\n        const int off = j - i;")],
+    "k1_no_ew": [
+        (R, "      alpha[rr] = expf(m_run[rr] - m_new);",
+         "      alpha[rr] = m_new;"),
+        (R, "      const float p = expf(x[e] - m_run[e >> 1]);",
+         "      const float p = x[e] - m_run[e >> 1];"),
+        (R, "drop.on && keep_bits(rk[e >> 1], j) < drop.thr",
+         "drop.on && rk[e >> 1] + j < drop.thr"),
+    ],
+    "k1_no_load": [(R, "    if (t + 1 < n_tiles) load_tile(t + 1, buf ^ 1);\n", "")],
+    "k1_one_tile": [(R, "const int n_tiles = (kend + S::KT - 1) / S::KT;",
+                     "const int n_tiles = 1;")],
+    "k1_launch_only": [(R, "  const bool valid = q0 + S::ROWS <= len;    // every row below len\n",
+                        "  const bool valid = q0 + S::ROWS <= len;    // every row below len\n"
+                        "  if (len >= 0) return;\n")],
+    "k1_no_merge": [(R, "  // merge the key splits in a fixed order\n",
+                     "  if (len >= 0) return;\n")],
+    "k1_splits4": [(R, "launch_fwd<2, 8, 96>", "launch_fwd<2, 4, 96>"),
+                   (R, "launch_fwd<1, 8, 96>", "launch_fwd<1, 4, 96>")],
+    "k1_splits2": [(R, "launch_fwd<2, 8, 96>", "launch_fwd<2, 2, 96>"),
+                   (R, "launch_fwd<1, 8, 96>", "launch_fwd<1, 2, 96>")],
+    "k1_splits1": [(R, "launch_fwd<2, 8, 96>", "launch_fwd<2, 1, 96>"),
+                   (R, "launch_fwd<1, 8, 96>", "launch_fwd<1, 1, 96>")],
+    "k1_rows16": [(R, "return (T + 31) / 32 * H * B < n_sm;",
+                   "return true;")],
+    "k1_rows32": [(R, "return (T + 31) / 32 * H * B < n_sm;",
+                   "return false;")],
+    "k1_generic": [(R, "dk == 96 ? launch_fwd", "dk == 0 ? launch_fwd")],
+    "k1_regs255": [(R, "512 / K1Tile<RG, KS>::NT)", "1)")],
+    "mma_nv": [(H, 'asm volatile(\n      "mma.sync', 'asm(\n      "mma.sync')],
 }
 
 
@@ -173,6 +215,17 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     seed = torch.tensor([7], dtype=torch.int32, device=dev)
     cases = []
+    for label, t, lengths, rate in (
+            ("frame", 640, [640, 600, 517, 333], 0.0),
+            ("frame", 640, [640, 600, 517, 333], 0.1),
+            ("token", 192, [192, 180, 151, 97], 0.0)):
+        q, k, v, ek, ev = cs.attention_inputs(torch, gen, t, dev)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        kw = dict(window=4, scale=96 ** -0.5, seed=seed, rate=rate)
+        ref = ra.rel_attention_plain(q, k, v, ek, ev, lens, **kw)
+        cases.append((f"K1 [4, {t}, 192] dropout {rate}",
+                      lambda a=(q, k, v, ek, ev, lens), kw=kw:
+                      ra.rel_attention_fwd(*a, **kw)[0], (ref,)))
     for label, t, lengths in (("frame", 640, [640, 600, 517, 333]),
                               ("token", 192, [192, 180, 151, 97])):
         q, k, v, ek, ev = cs.attention_inputs(torch, gen, t, dev)

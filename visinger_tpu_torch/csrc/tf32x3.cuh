@@ -1,5 +1,5 @@
 // Float32-accurate tensor-core products for sm_90a (3xTF32), shared by
-// K2 (wavenet_stack.cu) and K3 (rel_attention.cu).
+// K2 (wavenet_stack.cu), K1 and K3 (rel_attention.cu).
 //
 // One TF32 product rounds each operand to ~5e-4 relative, which the port's
 // 1e-4 limits do not allow.  So every float32 operand x is split into two
@@ -129,6 +129,34 @@ __device__ __forceinline__ FragB load_b_t(const float* s, int ld) {
   FragB f;
   split(s[g * ld + c], f.hi[0], f.lo[0]);
   split(s[g * ld + c + 4], f.hi[1], f.lo[1]);
+  return f;
+}
+
+// A tile already split into TF32 planes, A[m][k] = hi[m * ld + k] +
+// lo[m * ld + k] (K1's Q, split once and read at every key tile)
+__device__ __forceinline__ FragA load_a_split(const float* hi, const float* lo,
+                                              int ld) {
+  const int g = lane_g(), c = lane_c();
+  const int at[4] = {g * ld + c, (g + 8) * ld + c, g * ld + c + 4,
+                     (g + 8) * ld + c + 4};
+  FragA f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    f.hi[e] = __float_as_uint(hi[at[e]]);
+    f.lo[e] = __float_as_uint(lo[at[e]]);
+  }
+  return f;
+}
+
+// B tile of 8 keys stored k-major, B[key][n] at s[key * ld + n], read with
+// k-index c as key 2c and c + 4 as key 2c + 1.  In that order an m16n8
+// accumulator over the same 8 keys, taken as {d0, d2, d1, d3}, is the A
+// fragment of the next product (K1's P V, with P from S = Q K^T).
+__device__ __forceinline__ FragB load_b_pairs(const float* s, int ld) {
+  const int g = lane_g(), c = lane_c();
+  FragB f;
+  split(s[2 * c * ld + g], f.hi[0], f.lo[0]);
+  split(s[(2 * c + 1) * ld + g], f.hi[1], f.lo[1]);
   return f;
 }
 

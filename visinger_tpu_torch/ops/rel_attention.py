@@ -6,10 +6,11 @@ side ``_attn_bwd_rule``); entry ``rel_attention``.  Both CUDA kernels are in
 ``csrc/rel_attention.cu``, whose note gives the design.  On the H100 both are
 bound by operations (forward ~4·H·dk·Σ_b len_b² flops — a key at or past its
 item's length gets no weight, and every masked row is the same mean of v —
-against a few MB of q/k/v).  K1 runs on the float32 CUDA cores; K3's
-products run on the tensor cores in float32-accurate 3xTF32
-(``csrc/tf32x3.cuh``), with scratch sized by the CUDA source
-(``rel_attention_bwd_scratch``).
+against a few MB of q/k/v).  Both run their products on the tensor cores in
+float32-accurate 3xTF32 (``csrc/tf32x3.cuh``); K1's key loop stops at each
+item's length and a tile of masked rows does no q·kᵀ; K3's scratch is sized
+by the CUDA source (``rel_attention_bwd_scratch``).  Both take a head width
+dk that is a multiple of 8, at most 128.
 
 Attention dropout keeps an entry when a counter-based hash of (seed, b·H+h,
 i, j) is at least ⌊rate·2³²⌋ and scales kept entries by 1/(1−rate); the hash
@@ -84,13 +85,14 @@ def dropout_keep(seed: torch.Tensor, batch: int, heads: int, t: int,
 
 def rel_attention_plain(q, k, v, emb_rel_k, emb_rel_v, lengths, *,
                         window: int, scale: float, seed=None,
-                        rate: float = 0.0) -> torch.Tensor:
+                        rate: float = 0.0, with_stats: bool = False):
     """The same function in plain PyTorch (float32 scores and softmax).
 
     q, k, v: [B, T, C] with head h in channels [h*dk, (h+1)*dk);
     emb_rel_k/v: [2w+1, dk] shared by the heads; lengths: [B] prefix lengths;
     seed: int32 tensor of one element, needed when ``rate`` > 0.
-    Returns [B, T, C].
+    Returns [B, T, C]; with ``with_stats`` also K1's stats [B, H, T, 2],
+    each row's score max and sum of exp(score - max).
     """
     b, t, c = q.shape
     dk = emb_rel_k.shape[1]
@@ -111,6 +113,10 @@ def rel_attention_plain(q, k, v, emb_rel_k, emb_rel_v, lengths, *,
     valid = valid[:, None, :, None] & valid[:, None, None, :]
     scores = torch.where(valid, scores, torch.full_like(scores, MASK_VAL))
     p = torch.softmax(scores, dim=-1)
+    if with_stats:
+        row_max = scores.amax(dim=-1, keepdim=True)
+        stats = torch.cat([row_max, torch.exp(scores - row_max).sum(
+            dim=-1, keepdim=True)], dim=-1)
     if rate > 0:
         keep = dropout_keep(seed.to(q.device), b, nh, t, rate)
         p = torch.where(keep, p * (1.0 / (1.0 - rate)), torch.zeros_like(p))
@@ -120,7 +126,8 @@ def rel_attention_plain(q, k, v, emb_rel_k, emb_rel_v, lengths, *,
     in_range = (cols >= 0) & (cols < t)
     w_rel = torch.gather(p, -1, cols.clamp(0, t - 1).expand(b, nh, t, -1))
     out = out + (w_rel * in_range) @ emb_rel_v.float()
-    return out.transpose(1, 2).reshape(b, t, c).to(q.dtype)
+    out = out.transpose(1, 2).reshape(b, t, c).to(q.dtype)
+    return (out, stats) if with_stats else out
 
 
 def rel_attention_bwd_plain(q, k, v, emb_rel_k, emb_rel_v, lengths, g, *,
@@ -146,15 +153,17 @@ def _check(name, tensors, lengths, seed, rate, window):
                 or a.dtype != torch.float32:
             raise ValueError(f"{name}: {key} must be float32 on {q.device}, "
                              f"got {a.device} {a.dtype}")
-        if not a.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous")
+        if not a.is_contiguous() or a.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be contiguous and 16-byte "
+                             f"aligned (the kernels copy 16 bytes at a time)")
         if key in ("k", "v", "g", "out") and a.shape != q.shape:
             raise ValueError(f"{name}: {key} shape {tuple(a.shape)} != "
                              f"{tuple(q.shape)}")
     if tensors["emb_rel_v"].shape != (m, dk) or m != 2 * window + 1:
         raise ValueError(f"{name}: emb tables must be [2w+1, dk]")
-    if c % dk or dk > 128:
-        raise ValueError(f"{name}: C={c} must be heads*dk, dk<=128")
+    if c % dk or dk > 128 or dk % 8:
+        raise ValueError(f"{name}: C={c} must be heads*dk, dk a multiple of "
+                         f"8 and at most 128")
     if (lengths.device != q.device or lengths.dtype != torch.int32
             or lengths.shape != (b,) or not lengths.is_contiguous()):
         raise ValueError(f"{name}: lengths must be contiguous int32 [B] on "
@@ -223,7 +232,7 @@ def rel_attention_bwd(q, k, v, emb_rel_k, emb_rel_v, lengths, g, out, stats,
     n_scratch = size(b, t, c, dk, window)
     if n_scratch < 0:
         raise ValueError(f"rel_attention_bwd: head width {dk} must be a "
-                         f"multiple of 8")
+                         f"multiple of 8, at most 128")
     fn = lib.rel_attention_bwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 6 + _DROP_TYPES
