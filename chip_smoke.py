@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port of VISinger on one CUDA card: the GAN
-training step (the main path) and synthesis.
+training step (the main path), synthesis, and MIDI-to-waveform serving.
 
     python3 chip_smoke.py              # the check (one card)
     python3 chip_smoke.py --profile    # also write torch.profiler summaries
-                                       # of one training step and one
-                                       # synthesis group under chiprun_out/
+                                       # of one training step, one
+                                       # synthesis group and one MIDI score
+                                       # (full and streamed) under
+                                       # chiprun_out/
 
 Phases, each printing a line; any failure raises and exits nonzero:
   1. the card's name and power limit (nvidia-smi); TF32 off for matmuls and
@@ -17,8 +19,9 @@ Phases, each printing a line; any failure raises and exits nonzero:
   3. K1 (relative attention) against its plain version, out and each
      row's softmax max and sum (which K3 reads), at the frame-rate shape
      [4, 640, 192], the token-rate shape [4, 192, 192], a ragged
-     [4, 637, 192] (lengths 637, 600, 64, 1), and head widths 64 and 128
-     (K1's generic build), 2 heads; beside its times,
+     [4, 637, 192] (lengths 637, 600, 64, 1), head widths 64 and 128
+     (K1's generic build), and the longest MIDI phrase [1, 1280, 192]
+     (length 1237), 2 heads; beside its times,
      ``scaled_dot_product_attention`` on the same q, k, v with the band
      bias and mask as an additive float mask (``sdpa_partial_ms``, a
      yardstick: it lacks the band-column term); then with dropout 0.1
@@ -27,9 +30,10 @@ Phases, each printing a line; any failure raises and exits nonzero:
   4. K3 (attention backward) against autograd of the plain version at both
      shapes, dropout off and 0.1, with a random g; a second run on the same
      inputs must give bit-identical gradients;
-  5. K2 (WaveNet stack) at the flow shape x [4, 640, 192], L=4, and at the
+  5. K2 (WaveNet stack) at the flow shape x [4, 640, 192], L=4, at the
      posterior shape, L=16, where the gradients of its autograd function are
-     also held against plain autograd;
+     also held against plain autograd, and at the streaming window
+     [1, 366, 192], L=4 (length 336);
      kernel / plain device times (CUDA events, median of 30, each call
      queued behind a sleep kernel so the wrapper's host time is not in it)
      and per-call times (from an idle card, host time included, the method
@@ -46,7 +50,16 @@ Phases, each printing a line; any failure raises and exits nonzero:
   7. full-width synthesis: 8 token requests of up to 640 frames / 192 tokens
      through ``TorchSynthesizer`` in groups of 4 (launches per group K1 16,
      K2 4), then one short request on the card and on the CPU;
-  8. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+  8. MIDI serving through ``VISingerInfer`` (full width, seeded weights):
+     6 written scores of 5-8 s with Hangul lyrics served in bucket groups of
+     up to 4 (launches per group K1 16, K2 4; every wav frames x hop long,
+     finite, within +-1, not silent; audio-s/s, RTF, group ms, peak
+     memory), a 24 s score split into phrases (16 and 4 launches per
+     phrase) with pitch_control=4 moving the voiced rows by 4 and the audio,
+     the streaming decode of a 600+ frame score (4 K2 launches per window,
+     within 1e-4 of its peak of the full decode of the same z_p), and a
+     short score on the card and on the CPU with the same noise;
+  9. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 
 It imports the port only (no JAX) and exits nonzero, printing no result,
 without a CUDA device or outside a checkout of the repository.
@@ -284,7 +297,9 @@ def check_rel_attention(torch, ra, dev):
             ("ragged", 637, 192, [637, 600, 64, 1]),
             # head widths other than 96 take K1's generic build
             ("dk 64", 640, 128, [640, 600, 517, 333]),
-            ("dk 128", 100, 256, [100, 37])):
+            ("dk 128", 100, 256, [100, 37]),
+            # the longest MIDI phrase: one score at the largest frame bucket
+            ("midi phrase", 1280, 192, [1237])):
         dk = c // heads
         q, k, v = (torch.randn(len(lengths), t, c, generator=gen).to(dev)
                    for _ in range(3))
@@ -438,13 +453,15 @@ def stack_inputs(torch, gen, dev, lengths, t, c, n_layers, k):
     return x, w_in, b_in, w_rs, b_rs, g_bias, mask
 
 
-def check_wavenet_stack(torch, ws, dev, n_layers, label, grads=False):
-    """K2 against its plain version at x [4, 640, 192] with ``n_layers``
-    layers; with ``grads``, also the gradients of ``wavenet_stack`` (K2
-    forward, recomputed plain backward) against plain autograd."""
+def check_wavenet_stack(torch, ws, dev, n_layers, label, grads=False,
+                        t=640, lengths=(640, 600, 517, 333)):
+    """K2 against its plain version at x [len(lengths), t, 192] with
+    ``n_layers`` layers; with ``grads``, also the gradients of
+    ``wavenet_stack`` (K2 forward, recomputed plain backward) against plain
+    autograd."""
     gen = torch.Generator(device="cpu").manual_seed(2 + n_layers)
-    b, t, c, k = 4, 640, 192, 5
-    lengths = [640, 600, 517, 333]
+    b, c, k = len(lengths), 192, 5
+    lengths = list(lengths)
     args = stack_inputs(torch, gen, dev, lengths, t, c, n_layers, k)
     out = ws.wavenet_stack_fwd(*args)
     ref = ws.wavenet_stack_plain(*args)
@@ -630,20 +647,28 @@ def requests_from(batch, n):
             for i in range(n)]
 
 
+def flow_model(torch, cfg, *vocabs):
+    """The generator from seed 0 on the CPU, its flow's ``post`` weights
+    (zero at init) set nonzero so the flow is not the identity."""
+    from visinger_tpu_torch.models.factory import build_model
+
+    model = build_model(cfg, *vocabs, device="cpu", seed=0)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    with torch.no_grad():
+        for i in range(cfg.flow_n_flows):
+            post = getattr(model.flow, f"coupling_{i}").post
+            post.weight.copy_(torch.randn(post.weight.shape, generator=gen)
+                              * 0.02)
+    return model
+
+
 def synthesis(torch, ra, ws, dev, profile: bool):
     from visinger_tpu_torch.config import visinger_csd
     from visinger_tpu_torch.data.synthetic import synthetic_batch
     from visinger_tpu_torch.infer.infer import TorchSynthesizer
-    from visinger_tpu_torch.models.factory import build_model
 
     cfg = visinger_csd()
-    model_cpu = build_model(cfg, *VOCABS, device="cpu", seed=0)
-    gen = torch.Generator(device="cpu").manual_seed(3)
-    with torch.no_grad():  # post is zero at init: make the flow non-trivial
-        for i in range(cfg.flow_n_flows):
-            post = getattr(model_cpu.flow, f"coupling_{i}").post
-            post.weight.copy_(torch.randn(post.weight.shape, generator=gen)
-                              * 0.02)
+    model_cpu = flow_model(torch, cfg, *VOCABS)
     synth = TorchSynthesizer(cfg, copy.deepcopy(model_cpu), device=dev)
     batch = synthetic_batch(8, 192, 640, *VOCABS, hop_size=cfg.hop_size,
                             seed=0)
@@ -716,6 +741,200 @@ def synthesis(torch, ra, ws, dev, profile: bool):
     return counts
 
 
+# the lyrics of the MIDI scores: Hangul syllables with and without a coda
+SYLLABLES = list("나무소리가장하늘바다꽃잎국밥별빛노래")
+# the jamo a Hangul syllable decomposes into: the phone set of the scores
+JAMO = ([chr(c) for c in range(0x1100, 0x1113)]
+        + [chr(c) for c in range(0x1161, 0x1176)]
+        + [chr(c) for c in range(0x11A8, 0x11C3)])
+# seconds of music per score: 6 served together, a long one that splits into
+# phrases, a short one held against the CPU
+SCORE_SECONDS = (5.0, 6.0, 7.0, 8.0, 7.6, 5.5)
+LONG_SECONDS = 24.0
+SHORT_SECONDS = 2.0
+
+
+def write_scores(data_dir: Path, cfg, seed: int) -> dict:
+    """MIDI files with Hangul lyrics (pitches, durations and rests drawn from
+    ``seed``; 120 bpm, 480 ticks a beat) and the phone set, pitch map and
+    duration map of a binarized data dir.  -> {"batch": [6 paths], "long":
+    path, "short": path}."""
+    import numpy as np
+
+    from visinger_tpu_torch.data.binarizer import (build_dur_map,
+                                                   build_pitch_map)
+    from visinger_tpu_torch.utils.midi import Note, write_midi
+    from visinger_tpu_torch.utils.text.token_encoder import TokenTextEncoder
+
+    TokenTextEncoder(JAMO + ["<BOS>"]).store_to_file(
+        str(data_dir / "phone_set.json"))
+    for name, m in (("pitch_map", build_pitch_map(cfg.note_range)),
+                    ("dur_map", build_dur_map())):
+        (data_dir / f"{name}.json").write_text(json.dumps(m))
+    rng = np.random.RandomState(seed)
+
+    def score(name, seconds):
+        notes, lyrics, tick = [], [], 0
+        end = int(seconds * 960)                 # 960 ticks a second
+        while tick < end:
+            if notes and rng.rand() < 0.1:       # a rest of a beat
+                tick += 480
+            dur = min(int(rng.choice([240, 360, 480, 720])), end - tick)
+            if dur < 240:
+                break
+            notes.append(Note(tick, tick + dur, int(rng.randint(55, 76)), 80))
+            lyrics.append((tick, str(rng.choice(SYLLABLES))))
+            tick += dur
+        path = str(data_dir / f"{name}.mid")
+        write_midi(path, notes, ticks_per_beat=480, lyrics=lyrics)
+        return path
+
+    return {"batch": [score(f"song{i}", s)
+                      for i, s in enumerate(SCORE_SECONDS)],
+            "long": score("long", LONG_SECONDS),
+            "short": score("short", SHORT_SECONDS)}
+
+
+def midi_infer(torch, ra, ws, dev, data_dir: Path, profile: bool):
+    """MIDI files -> waveforms through ``VISingerInfer`` at full width:
+    6 scores served in bucket groups, a 24 s score split into phrases, pitch
+    control, streaming decode, and a short score on the card and the CPU.
+    Returns the launch counts of the timed ``synthesize_batch`` passes and
+    the streaming window's frames."""
+    import numpy as np
+
+    from visinger_tpu_torch.config import visinger_csd
+    from visinger_tpu_torch.infer.infer import VISingerInfer
+
+    cfg = visinger_csd()
+    fns = write_scores(data_dir, cfg, seed=0)
+    vocabs = [len(json.loads((data_dir / f"{name}.json").read_text()))
+              for name in ("phone_set", "pitch_map", "dur_map")]
+    inf = VISingerInfer(cfg, flow_model(torch, cfg, *vocabs), data_dir,
+                        device=dev)
+    per = {"rel_attention_fwd": cfg.enc_layers + cfg.pitch_predictor_layers
+           + cfg.frame_prior_layers, "wavenet_stack_fwd": cfg.flow_n_flows}
+
+    def counts():
+        return {"rel_attention_fwd": ra.launches,
+                "wavenet_stack_fwd": ws.launches}
+
+    frames = [len(inf.preprocess_input(fn)["mel2ph"]) for fn in fns["batch"]]
+    inf.synthesize_batch(fns["batch"], seed=0)           # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    passes, group_s, wall = 2, [], 0.0
+    ra.launches = ws.launches = 0
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        records = inf.synthesize_batch(fns["batch"], seed=0)
+        wall += time.perf_counter() - t0
+        group_s += inf.last_group_seconds
+    batch_counts = counts()
+    groups = len(group_s)
+    for name, n in per.items():
+        check(batch_counts[name] == n * groups, f"midi_infer: {name} "
+              f"{batch_counts[name]} launches != {n} x {groups} groups")
+    for rec, t_valid in zip(records, frames):
+        wav = rec["wav"]
+        check(rec["rtf_kind"] == "batch_mean", f"midi_infer: {rec['fn']} "
+              f"served alone")
+        check(wav.shape == (t_valid * cfg.hop_size,),
+              f"midi_infer: wav shape {wav.shape} for {t_valid} frames")
+        check(bool(np.isfinite(wav).all()), "midi_infer: non-finite wav")
+        peak = float(np.abs(wav).max())
+        check(0 < peak <= 1.0, f"midi_infer: wav peak {peak}")
+    audio_s = sum(frames) * cfg.hop_size / cfg.sample_rate
+    synth_s = sum(group_s) / passes
+    group_ms = sorted(s * 1e3 for s in group_s)
+    phase("midi_infer", scores=len(fns["batch"]), frames=frames,
+          groups=groups // passes, launches=batch_counts,
+          launches_per_group={k: v / groups for k, v in batch_counts.items()},
+          median_group_ms=group_ms[len(group_ms) // 2], group_ms=group_ms,
+          audio_s_per_s=audio_s / synth_s, rtf=synth_s / audio_s,
+          wall_s_per_pass=wall / passes,
+          peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+
+    # a 24 s score: phrases, each one prior and one decode
+    rows = inf.score_rows(fns["long"])
+    n_phrases = len(inf._phrases(rows))
+    check(n_phrases >= 2, f"midi_infer: the long score gave {n_phrases} "
+          "phrase")
+    inf.synthesize(fns["long"], seed=0)                  # warm-up
+    ra.launches = ws.launches = 0
+    wav, rtf = inf.synthesize(fns["long"], seed=0)
+    long_counts = counts()
+    for name, n in per.items():
+        check(long_counts[name] == n * n_phrases, f"midi_infer long: {name} "
+              f"{long_counts[name]} launches != {n} x {n_phrases} phrases")
+    up_rows = inf.score_rows(fns["long"], pitch_control=4)
+    check(all(u[2] == r[2] + 4 for u, r in zip(up_rows, rows) if r[2] > 0)
+          and all(u[2] == 0 for u, r in zip(up_rows, rows) if r[2] == 0),
+          "midi_infer: pitch_control=4 did not move the voiced rows by 4")
+    wav_up, _ = inf.synthesize(fns["long"], pitch_control=4, seed=0)
+    check(wav_up.shape == wav.shape and bool(np.isfinite(wav_up).all()),
+          "midi_infer: pitch_control changed the length or is non-finite")
+    moved = float(np.abs(wav_up - wav).max())
+    check(moved > 1e-3 * float(np.abs(wav).max()),
+          f"midi_infer: pitch_control=4 moved the audio by only {moved}")
+    phase("midi_infer_long", seconds=len(wav) / cfg.sample_rate,
+          phrases=n_phrases, launches=long_counts, rtf=rtf,
+          audio_s_per_s=1 / rtf, pitch_control_4_max_change=moved)
+
+    # streaming: the same weights, decode window by window
+    stream = VISingerInfer(cfg.replace(stream_infer=True), inf.model,
+                           data_dir, device=dev)
+    streamer = stream._streamer
+    fn = fns["batch"][frames.index(max(frames))]
+    batch, t_valid = inf._pad_to_bucket(inf.preprocess_input(fn))
+    t_pad = batch["mel2ph"].shape[1]
+    check(t_valid >= 600, f"midi_infer: longest score {t_valid} frames")
+    b = {k: torch.from_numpy(v).long().to(dev) for k, v in batch.items()}
+    with torch.no_grad():
+        z_p, mask = inf.model.infer_prior(
+            b["text_tokens"], b["note_pitch"], b["note_dur"], b["mel2ph"],
+            spk_id=b["spk_ids"], eps=inf.prior_noise(t_pad, 0).to(dev))
+        full = inf.model.decode_frames(z_p, mask, spk_id=b["spk_ids"])
+        ra.launches = ws.launches = 0
+        streamed = streamer.decode(z_p, mask, spk_id=b["spk_ids"])
+        torch.cuda.synchronize()
+    windows = streamer.n_windows(t_pad)
+    check(ws.launches == cfg.flow_n_flows * windows,
+          f"midi_infer stream: {ws.launches} K2 launches != "
+          f"{cfg.flow_n_flows} x {windows} windows")
+    peak = float(full.abs().max())
+    err = float((streamed - full).abs().max())
+    check(peak > 0 and err <= TOL_CPU_REL * peak, f"midi_infer stream: "
+          f"max abs err {err} against the full decode > {TOL_CPU_REL} x "
+          f"{peak}")
+    stream.synthesize(fn, seed=0)                        # warm-up
+    _, stream_rtf = stream.synthesize(fn, seed=0)
+    if profile:
+        profile_run(torch, lambda: inf.synthesize(fn, seed=0), "midi_score")
+        profile_run(torch, lambda: stream.synthesize(fn, seed=0),
+                    "midi_stream")
+    phase("midi_infer_stream", frames=t_valid, padded_frames=t_pad,
+          chunk=streamer.chunk, halo=streamer.halo, window=streamer.window,
+          windows=windows, k2_launches=windows * cfg.flow_n_flows,
+          max_abs_err=err, tol=TOL_CPU_REL * peak, rtf=stream_rtf,
+          audio_s_per_s=1 / stream_rtf)
+
+    # one short score on the card and on the CPU: the same weights and eps
+    cpu = VISingerInfer(cfg, copy.deepcopy(inf.model).cpu(), data_dir,
+                        device="cpu")
+    got, _ = inf.synthesize(fns["short"], seed=0)
+    want, _ = cpu.synthesize(fns["short"], seed=0)
+    peak = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    check(got.shape == want.shape and bool(np.isfinite(got).all()),
+          "midi_infer card vs CPU: shape or non-finite")
+    check(peak > 0 and err <= TOL_CPU_REL * peak, f"midi_infer card vs CPU: "
+          f"max abs err {err} > {TOL_CPU_REL} x {peak}")
+    phase("midi_card_vs_cpu", samples=len(got), max_abs_err=err,
+          tol=TOL_CPU_REL * peak, wav_abs_max=peak)
+    return batch_counts, streamer.window
+
+
 def profile_run(torch, fn, tag: str):
     """Device time by kernel and the device idle share of one ``fn()``."""
     from torch.profiler import ProfilerActivity, profile
@@ -765,6 +984,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from visinger_tpu_torch.config import visinger_csd
+    from visinger_tpu_torch.infer.streaming import halo_frames
     from visinger_tpu_torch.ops import cuda_build
     from visinger_tpu_torch.ops import rel_attention as ra
     from visinger_tpu_torch.ops import wavenet_stack as ws
@@ -799,12 +1020,25 @@ def main() -> int:
     k2_row = check_wavenet_stack(torch, ws, dev, 4, "wavenet_stack")
     k2_post = check_wavenet_stack(torch, ws, dev, 16, "posterior",
                                   grads=True)
+    # the streaming decode's window (chunk + 2 halo frames), the last window
+    # of a score ragged
+    window = visinger_csd().stream_chunk_frames + 2 * halo_frames(
+        visinger_csd())
+    k2_window = check_wavenet_stack(torch, ws, dev, 4, "stream_window",
+                                    t=window, lengths=(window - 30,))
     train_counts = training(torch, ra, ws, dev, args.profile)
     train_card_vs_cpu(torch, dev)
     synth_counts = synthesis(torch, ra, ws, dev, args.profile)
+    scores_dir = ROOT / "build" / "midi_scores"
+    scores_dir.mkdir(parents=True, exist_ok=True)
+    midi_counts, stream_window = midi_infer(torch, ra, ws, dev, scores_dir,
+                                            args.profile)
+    check(stream_window == window, f"streaming window {stream_window} != "
+          f"the checked K2 shape's {window}")
 
     k1 = k1_rows[0]  # the frame-rate shape: 12 of the 18 layers per step
     k1_token = k1_rows[1]
+    k1_phrase = next(r for r in k1_rows if r["shape"].endswith("phrase"))
     k3 = next(r for r in k3_rows if r["shape"].endswith("frame")
               and r["dropout"] > 0)
     kernels = [
@@ -824,7 +1058,13 @@ def main() -> int:
                           + [k1_drop["stats_err"]]),
          "token_ms": k1_token["ms"], "token_plain_ms": k1_token["plain_ms"],
          "token_bound_tc_ms": k1_token["bound_tc_ms"],
-         "synthesis_launches": synth_counts["rel_attention_fwd"]},
+         "synthesis_launches": synth_counts["rel_attention_fwd"],
+         "midi_launches": midi_counts["rel_attention_fwd"],
+         "midi_phrase_shape": k1_phrase["shape"],
+         "midi_phrase_ms": k1_phrase["ms"],
+         "midi_phrase_plain_ms": k1_phrase["plain_ms"],
+         "midi_phrase_bound_ms": k1_phrase["bound_ms"],
+         "midi_phrase_bound_tc_ms": k1_phrase["bound_tc_ms"]},
         {"name": "rel_attention_bwd", "route": "cuda",
          "source": "visinger_tpu_torch/csrc/rel_attention.cu",
          "replaces": "visinger_tpu/ops/pallas/attention_kernel.py:250",
@@ -840,7 +1080,8 @@ def main() -> int:
          "source": "visinger_tpu_torch/csrc/wavenet_stack.cu",
          "replaces": "visinger_tpu/ops/pallas/wavenet_kernel.py:115",
          "launches": train_counts["wavenet_stack_fwd"],
-         "max_abs_err": max(k2_row["max_abs_err"], k2_post["max_abs_err"]),
+         "max_abs_err": max(k2_row["max_abs_err"], k2_post["max_abs_err"],
+                            k2_window["max_abs_err"]),
          "ms": k2_post["ms"], "plain_ms": k2_post["plain_ms"],
          "call_ms": k2_post["call_ms"],
          "plain_call_ms": k2_post["plain_call_ms"],
@@ -850,7 +1091,12 @@ def main() -> int:
          "l4_ms": k2_row["ms"], "l4_plain_ms": k2_row["plain_ms"],
          "l4_bound_ms": k2_row["bound_ms"],
          "l4_bound_tc_ms": k2_row["bound_tc_ms"],
-         "synthesis_launches": synth_counts["wavenet_stack_fwd"]},
+         "synthesis_launches": synth_counts["wavenet_stack_fwd"],
+         "midi_launches": midi_counts["wavenet_stack_fwd"],
+         "window_shape": k2_window["shape"], "window_ms": k2_window["ms"],
+         "window_plain_ms": k2_window["plain_ms"],
+         "window_bound_ms": k2_window["bound_ms"],
+         "window_bound_tc_ms": k2_window["bound_tc_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

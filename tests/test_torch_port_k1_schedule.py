@@ -34,6 +34,22 @@ SCALE = DK ** -0.5
 PERM = [0, 2, 4, 6, 1, 3, 5, 7]          # k-index -> key of an 8-key group
 
 
+@pytest.fixture(autouse=True)
+def _pinned_float32_state():
+    """Pin the process-wide state the float32 sums here could depend on
+    (another test in the same worker may change it): matmul precision
+    "highest" (at "medium" the CPU matmuls run in bfloat16 and out misses by
+    ~8e-3), no flush of denormals, float32 as the default dtype."""
+    prec = torch.get_float32_matmul_precision()
+    dtype = torch.get_default_dtype()
+    torch.set_float32_matmul_precision("highest")
+    torch.set_flush_denormal(False)
+    torch.set_default_dtype(torch.float32)
+    yield
+    torch.set_float32_matmul_precision(prec)
+    torch.set_default_dtype(dtype)
+
+
 def _inputs(seed=0, lengths=LENGTHS):
     rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(rng.standard_normal(

@@ -6,6 +6,7 @@ Tolerance 1e-5 max abs in float32 unless stated: the same arithmetic summed
 in another order."""
 
 import dataclasses
+from collections.abc import Mapping
 
 import jax
 import jax.numpy as jnp
@@ -216,14 +217,18 @@ def test_hifigan_tiny_width():
 def _as_tuples(v):
     if isinstance(v, (list, tuple)):
         return tuple(_as_tuples(e) for e in v)
+    if isinstance(v, Mapping):
+        return {k: _as_tuples(v[k]) for k in v}
     return v
 
 
 # keys the YAML leaves out, with the default the JAX code reads them with
-# (models/visinger.py, models/factory.py, training/train_step.py)
+# (models/visinger.py, models/factory.py, training/train_step.py,
+# infer/infer.py, infer/vocoder.py)
 _JAX_CODE_DEFAULTS = {"slice_ref_padded": False, "disc_s_base": 16,
                       "disc_p_channels": (32, 128, 512, 1024),
-                      "remat_policy": "none"}
+                      "remat_policy": "none", "sp_infer": False,
+                      "griffin_lim_iters": 30}
 
 
 @pytest.mark.parametrize("which", ["visinger_csd", "tiny"])
@@ -235,6 +240,57 @@ def test_recipe_matches_yaml(which):
     for f in dataclasses.fields(port):
         want = ref.get(f.name, _JAX_CODE_DEFAULTS.get(f.name, KeyError))
         assert _as_tuples(getattr(port, f.name)) == _as_tuples(want), f.name
+    # the argument dicts are read-only, by key and by attribute
+    assert port.preprocess_args.num_frame == \
+        port.preprocess_args["num_frame"] == 3
+    with pytest.raises(AttributeError):
+        port.binarization_args.min_text = 1
+    assert hash(port) == hash(port.replace())
+
+
+@pytest.mark.parametrize("hidden,heads,what", [
+    (192, 1, "head width 192"),     # dk above 128
+    (60, 2, "head width 30"),       # dk not a multiple of 8
+    (48, 2, "hidden_size 48"),      # dk 24 is fine, C % 32 is not
+    (18, 4, "not a multiple of num_heads")])
+def test_kernel_widths_refused_at_build_for_cuda(hidden, heads, what,
+                                                 monkeypatch):
+    """K1/K3 take a head width that is a multiple of 8 and at most 128, K2
+    channels that are a multiple of 32: a CUDA build refuses other widths
+    before any weight is made; a CPU build runs them (plain versions)."""
+    from visinger_tpu_torch.config import check_supported
+    from visinger_tpu_torch.infer.infer import TorchSynthesizer
+    from visinger_tpu_torch.models.factory import build_model
+    from visinger_tpu_torch.training.train_step import make_train_step
+
+    cfg = port_config.tiny_config().replace(hidden_size=hidden,
+                                            num_heads=heads)
+    with pytest.raises(NotImplementedError, match=what):
+        check_supported(cfg, torch.device("cuda", 0))
+    with pytest.raises(NotImplementedError, match=what):
+        check_supported(cfg, "cuda")
+    # the device check of the entry points stubbed: the width refusal
+    # comes before any tensor reaches the card
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(NotImplementedError, match=what):
+        build_model(cfg, 20, 30, 25, device="cuda")
+    monkeypatch.undo()
+    if hidden % heads:
+        return
+    check_supported(cfg, "cpu")
+    model = build_model(cfg, 20, 30, 25, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for make in (lambda: TorchSynthesizer(cfg, model, device="cuda"),
+                 lambda: make_train_step(cfg, model, None, device="cuda")):
+        with pytest.raises(NotImplementedError, match=what):
+            make()
+    monkeypatch.undo()
+    tokens = torch.ones(1, 6, dtype=torch.long)
+    mel2ph = torch.arange(1, 7).repeat_interleave(4)[None]
+    with torch.no_grad():
+        z_p, mask = model.infer_prior(tokens, tokens, tokens, mel2ph)
+        wav = model.decode_frames(z_p, mask)
+    assert wav.shape == (1, 24 * cfg.hop_size) and bool(wav.isfinite().all())
 
 
 def test_converter_raises_on_unknown_leaves():

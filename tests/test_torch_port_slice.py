@@ -31,7 +31,8 @@ from visinger_tpu.models.visinger import VISinger as JVISinger
 from visinger_tpu_torch.config import tiny_config
 from visinger_tpu_torch.convert import params_from_jax
 from visinger_tpu_torch.data.synthetic import synthetic_batch
-from visinger_tpu_torch.infer.infer import TorchSynthesizer
+from visinger_tpu_torch.infer.infer import TorchSynthesizer, VISingerInfer
+from visinger_tpu_torch.infer.streaming import StreamingSynthesizer
 from visinger_tpu_torch.models.factory import build_model
 from visinger_tpu_torch.models.factory import build_models as port_build_models
 from visinger_tpu_torch.training.train_step import make_train_step
@@ -220,9 +221,10 @@ _FORBIDDEN = re.compile(
 
 def test_port_imports_nothing_of_jax():
     """The port and chip_smoke.py import no jax, flax, yaml or visinger_tpu:
-    a CPU synthesis and a CPU training step (``training/``, ``ops/stft.py``)
-    succeed with those modules blocked, and no source names them in an
-    import."""
+    a CPU synthesis, a CPU training step (``training/``, ``ops/stft.py``) and
+    a CPU ``VISingerInfer.synthesize`` of a written MIDI file (the front end,
+    ``utils/``, ``data/``) succeed with those modules blocked, and no source
+    names them in an import."""
     sources = sorted((REPO / "visinger_tpu_torch").rglob("*.py"))
     sources.append(REPO / "chip_smoke.py")
     for path in sources:
@@ -254,6 +256,27 @@ raw.pop("spec")  # computed from the waveform instead
 state, metrics = make_train_step(cfg, model, disc, device="cpu")(
     create_train_state(model, disc), raw)
 assert all(bool(v.isfinite()) for v in metrics.values())
+import json, os, tempfile
+from visinger_tpu_torch.data.binarizer import build_dur_map, build_pitch_map
+from visinger_tpu_torch.infer.infer import VISingerInfer
+from visinger_tpu_torch.utils.midi import Note, write_midi
+from visinger_tpu_torch.utils.text.token_encoder import TokenTextEncoder
+data_dir = tempfile.mkdtemp()
+jamo = [chr(c) for c in list(range(0x1100, 0x1113)) + list(range(0x1161, 0x1176))
+        + list(range(0x11A8, 0x11C3))]
+enc = TokenTextEncoder(jamo + ["<BOS>"])
+enc.store_to_file(os.path.join(data_dir, "phone_set.json"))
+maps = {"pitch_map": build_pitch_map(cfg.note_range), "dur_map": build_dur_map()}
+for name, m in maps.items():
+    with open(os.path.join(data_dir, name + ".json"), "w") as f:
+        json.dump(m, f)
+midi_fn = os.path.join(data_dir, "song.mid")
+notes = [Note(480 * i, 480 * i + 400, 60 + i, 80) for i in range(4)]
+write_midi(midi_fn, notes, lyrics=[(480 * i, s) for i, s in enumerate("나무소리")])
+model = build_model(cfg, len(enc), len(maps["pitch_map"]), len(maps["dur_map"]),
+                    device="cpu")
+wav, rtf = VISingerInfer(cfg, model, data_dir, device="cpu").synthesize(midi_fn)
+assert wav.size > 0 and rtf > 0
 import chip_smoke
 print("isolated-ok")
 """
@@ -264,7 +287,7 @@ print("isolated-ok")
     assert "isolated-ok" in proc.stdout
 
 
-def test_entry_points_default_to_cuda_and_raise_without_it():
+def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default device works")
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -272,6 +295,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     model = build_model(tiny_config(), *VOCABS, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         TorchSynthesizer(tiny_config(), model)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VISingerInfer(tiny_config(), model, str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StreamingSynthesizer(tiny_config(), model)
     with pytest.raises(RuntimeError, match="CUDA"):
         port_build_models(tiny_config(), *VOCABS)
     model, disc = port_build_models(tiny_config(), *VOCABS, device="cpu")

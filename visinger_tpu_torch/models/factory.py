@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from visinger_tpu_torch.config import Config
+from visinger_tpu_torch.config import Config, check_supported
 from visinger_tpu_torch.models.visinger import VISinger
 from visinger_tpu_torch.modules.discriminator import MultiPeriodDiscriminator
 
@@ -25,8 +25,10 @@ def build_model(cfg: Config, ph_vocab: int, pitch_vocab: int, dur_vocab: int,
                 device="cuda", seed: int = 0) -> VISinger:
     """A VISinger with the torch-default initialisers, drawn on the CPU from
     ``seed`` (so every device gets the same weights), in eval mode on
-    ``device``."""
+    ``device``; a setting or width the port does not run on ``device``
+    raises first."""
     dev = resolve_device(device)
+    check_supported(cfg, dev)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = VISinger(cfg, ph_vocab, pitch_vocab, dur_vocab)

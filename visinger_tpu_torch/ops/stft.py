@@ -59,20 +59,23 @@ def _dft_matrices(n_fft: int, win_length: int) -> tuple[np.ndarray,
 
 class STFTParams:
     """The constants of one STFT / mel configuration, as tensors on
-    ``device`` (built once, reused by every call)."""
+    ``device`` (built once, reused by every call) and as numpy arrays
+    (``cos_m``, ``sin_m``, ``mel_fb_np``) for the ``*_np`` functions."""
 
     def __init__(self, n_fft: int, win_length: int, hop_length: int,
                  sample_rate: int = 24000, f_min: float = 20.0,
                  f_max: float = 12000.0, n_mels: int = 128, device="cpu"):
         self.n_fft = n_fft
+        self.win_length = win_length
         self.hop_length = hop_length
-        n_bins = n_fft // 2 + 1
-        cos_m, sin_m = _dft_matrices(n_fft, win_length)
+        self.n_bins = n_bins = n_fft // 2 + 1
+        self.cos_m, self.sin_m = _dft_matrices(n_fft, win_length)
+        self.mel_fb_np = mel_filterbank(n_bins, f_min, f_max, n_mels,
+                                        sample_rate)
         # [n_fft, 2 * n_bins]: real parts, then imaginary parts
-        self.dft = torch.from_numpy(np.concatenate([cos_m, sin_m], 1)).to(
-            device)
-        self.mel_fb = torch.from_numpy(mel_filterbank(
-            n_bins, f_min, f_max, n_mels, sample_rate)).to(device)
+        self.dft = torch.from_numpy(np.concatenate(
+            [self.cos_m, self.sin_m], 1)).to(device)
+        self.mel_fb = torch.from_numpy(self.mel_fb_np).to(device)
 
     @classmethod
     def from_config(cls, cfg, device="cpu") -> "STFTParams":
@@ -122,3 +125,21 @@ def log_mel_slices(x: torch.Tensor, ids_frame: torch.Tensor, seg: int,
     seg_wav = torch.gather(xp, 1, idx)
     mel = _power(seg_wav.unfold(1, n_fft, hop), params) @ params.mel_fb
     return torch.log(mel + 1e-3)
+
+
+def power_spectrogram_np(x: np.ndarray, params: STFTParams) -> np.ndarray:
+    """numpy: [L] waveform -> [F-1, n_bins] power spectrogram."""
+    pad = params.n_fft // 2
+    xp = np.pad(x, (pad, pad), mode="reflect")
+    n_frames = 1 + (len(xp) - params.n_fft) // params.hop_length
+    idx = (np.arange(n_frames)[:, None] * params.hop_length
+           + np.arange(params.n_fft))
+    frames = xp[idx]
+    re = frames @ params.cos_m
+    im = frames @ params.sin_m
+    return (re * re + im * im)[:-1]
+
+
+def log_mel_spectrogram_np(x: np.ndarray, params: STFTParams) -> np.ndarray:
+    """numpy: [L] waveform -> [F-1, n_mels] log(mel + 1e-3)."""
+    return np.log(power_spectrogram_np(x, params) @ params.mel_fb_np + 1e-3)

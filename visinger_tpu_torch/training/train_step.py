@@ -38,9 +38,9 @@ class TrainStep:
     or tensors; ``spec`` and ``item_weights`` optional)."""
 
     def __init__(self, cfg: Config, model, disc, device="cuda"):
-        check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        check_supported(cfg, self.device)
         self.model = model.to(self.device)
         self.disc = disc.to(self.device)
         self.stft = STFTParams.from_config(cfg, self.device)
