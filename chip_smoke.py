@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port of VISinger on one CUDA card: the GAN
-training step (the main path), synthesis, and MIDI-to-waveform serving.
+training step (the main path), synthesis, MIDI-to-waveform serving and the
+trainer.
 
     python3 chip_smoke.py              # the check (one card)
     python3 chip_smoke.py --profile    # also write torch.profiler summaries
@@ -59,7 +60,18 @@ Phases, each printing a line; any failure raises and exits nonzero:
      the streaming decode of a 600+ frame score (4 K2 launches per window,
      within 1e-4 of its peak of the full decode of the same z_p), and a
      short score on the card and on the CPU with the same noise;
-  9. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+  9. the trainer (phase ``trainer``): a binarized corpus written from seed
+     0 (24 train and 8 valid items of 150-192 tokens and 560-640 frames,
+     batches of 4 in the 640-frame bucket) and ``Trainer.fit`` at full
+     width: 8 steps on the device-store route (launches counted against
+     the steps and eval batches), a new trainer resuming to 10, 8 logged
+     steps on each data route (ms per step beside the bare ``training``
+     phase), the lines that synchronise with the card in 3 steps, the
+     step-8 checkpoint validated on the card and on the CPU (within 1e-4
+     relative), the checkpoint files, ``best.json`` and the logs, and the
+     costs of an eval batch, a checkpoint save (sync, async) and restore,
+     and the device store's upload;
+ 10. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 
 It imports the port only (no JAX) and exits nonzero, printing no result,
 without a CUDA device or outside a checkout of the repository.
@@ -509,7 +521,7 @@ def training_batch(cfg, b, n_tokens, n_frames, seed):
 
 def training(torch, ra, ws, dev, profile: bool):
     """Full-width training steps on the card; returns the launch counts of
-    the timed steps."""
+    the timed steps and their median ms."""
     from visinger_tpu_torch.config import visinger_csd
     from visinger_tpu_torch.models.factory import build_models
     from visinger_tpu_torch.training.train_state import create_train_state
@@ -566,7 +578,7 @@ def training(torch, ra, ws, dev, profile: bool):
           last_metrics={k: float(v) for k, v in metrics[-1].items()})
     if profile:
         profile_run(torch, lambda: train_step(state, batch), "train_step")
-    return counts
+    return counts, med
 
 
 def train_card_vs_cpu(torch, dev):
@@ -935,6 +947,330 @@ def midi_infer(torch, ra, ws, dev, data_dir: Path, profile: bool):
     return batch_counts, streamer.window
 
 
+# the trainer phase's corpus: full-width batches of 4 in the 640-frame bucket
+TRAIN_ITEMS, VALID_ITEMS = 24, 8
+ITEM_TOKENS, ITEM_FRAMES = (150, 192), (560, 640)
+TOL_VALID_REL = 1e-4    # card vs CPU validation metrics, relative
+ROUTE_STEPS = 8         # logged steps per data route, the first not timed
+
+
+def write_corpus(data_dir: Path, n_train: int, n_valid: int, tokens, frames,
+                 hop: int, seed: int = 0) -> None:
+    """A binarized corpus in the record layout the JAX ``Binarizer`` writes
+    (``ph_token``, ``note_pitch``, ``note_dur``, ``mel2ph``, ``f0`` in Hz
+    with unvoiced runs, ``wav`` float32), ``{split}_lengths.npy`` and the
+    phone set, pitch map and duration map at ``VOCABS``; items drawn from
+    numpy ``seed`` with ``tokens`` and ``frames`` in the given ranges."""
+    import numpy as np
+
+    from visinger_tpu_torch.data.record_store import RecordWriter
+    from visinger_tpu_torch.utils.text.token_encoder import (RESERVED_TOKENS,
+                                                             TokenTextEncoder)
+
+    n_ph, n_pitch, n_dur = VOCABS
+    data_dir.mkdir(parents=True, exist_ok=True)
+    TokenTextEncoder([f"ph{i}" for i in range(n_ph - len(RESERVED_TOKENS))]
+                     ).store_to_file(str(data_dir / "phone_set.json"))
+    maps = {"pitch_map": {str(i): i for i in range(n_pitch)},
+            "dur_map": {str(i): i for i in range(n_dur)}}
+    for name, m in maps.items():
+        (data_dir / f"{name}.json").write_text(json.dumps(m))
+    rng = np.random.RandomState(seed)
+    for split, n_items in (("train", n_train), ("valid", n_valid)):
+        lengths = []
+        with RecordWriter(str(data_dir / split)) as w:
+            for i in range(n_items):
+                n = rng.randint(tokens[0], tokens[1] + 1)
+                t = rng.randint(frames[0], frames[1] + 1)
+                cuts = np.sort(rng.choice(np.arange(1, t), n - 1,
+                                          replace=False))
+                mel2ph = np.repeat(np.arange(1, n + 1),
+                                   np.diff(np.concatenate([[0], cuts, [t]])))
+                f0 = 220.0 * 2 ** (rng.randn(n)[mel2ph - 1] / 6)
+                for _ in range(3):                 # unvoiced runs
+                    a = rng.randint(0, t - 20)
+                    f0[a:a + rng.randint(5, 20)] = 0.0
+                phase = 2 * np.pi * np.cumsum(np.repeat(f0, hop)) / 24000
+                wav = 0.3 * np.sin(phase) + 0.01 * rng.randn(t * hop)
+                w.add({"item_name": f"{split}{i}", "spk_id": 0,
+                       "ph_token": rng.randint(len(RESERVED_TOKENS), n_ph,
+                                               n).tolist(),
+                       "note_pitch": rng.randint(1, n_pitch, n).tolist(),
+                       "note_dur": rng.randint(3, n_dur, n).tolist(),
+                       "mel2ph": mel2ph.tolist(),
+                       "f0": f0.astype(np.float32),
+                       "wav": wav.astype(np.float32)})
+                lengths.append(t)
+        np.save(data_dir / f"{split}_lengths.npy", np.asarray(lengths))
+
+
+def captured(fn):
+    """(fn(), what it printed); the printed text is echoed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn()
+    print(buf.getvalue(), end="", flush=True)
+    return result, buf.getvalue()
+
+
+def sync_sites(torch, fn) -> dict:
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")`` and count
+    the warnings by the line (and its code) that made them."""
+    import linecache
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sites: dict = {}
+    for w in caught:
+        if "synchroniz" not in str(w.message):
+            continue
+        where = Path(w.filename)
+        key = (f"{where.relative_to(ROOT)}:{w.lineno}"
+               if where.is_relative_to(ROOT) else f"{where.name}:{w.lineno}")
+        key += " " + linecache.getline(w.filename, w.lineno).strip()
+        sites[key] = sites.get(key, 0) + 1
+    return dict(sorted(sites.items(), key=lambda kv: -kv[1]))
+
+
+def log_ms_per_step(work_dir: Path, skip: int = 1) -> list:
+    """Wall ms per step from ``log.jsonl``'s ``steps_per_s`` of a run that
+    logged every step (each log reads the meters, a synchronisation), the
+    first ``skip`` steps left out."""
+    recs = [json.loads(line) for line in
+            (work_dir / "log.jsonl").read_text().splitlines()]
+    return [1e3 / r["steps_per_s"] for r in recs
+            if r["prefix"] == "train"][skip:]
+
+
+def trainer(torch, ra, ws, dev, root: Path, training_ms: float):
+    """``Trainer.fit`` at full width on a binarized corpus written from seed
+    0 (24 train and 8 valid items, 150-192 tokens, 560-640 frames: batches
+    of 4 in the 640-frame bucket): 8 steps on the device-store route with
+    logs every 2 steps, validation and checkpoints every 4 and a sanity
+    validation; a new trainer resuming to 10; 8 logged steps on each data
+    route for the step time, between bare steps on a batch already on the
+    card; the lines that wait for the card in 3 steps; the step-8
+    checkpoint validated on the card and on the CPU; the costs of an eval
+    batch, a checkpoint save and restore, the store's upload and the data
+    plane's own work per batch.  Returns the launches of the 8-step fit."""
+    import os
+    import shutil
+    import statistics
+
+    import numpy as np
+
+    from visinger_tpu_torch.config import visinger_csd
+    from visinger_tpu_torch.data.dataset import build_dataset
+    from visinger_tpu_torch.data.device_store import DeviceStore, gather_batch
+    from visinger_tpu_torch.models.factory import build_models
+    from visinger_tpu_torch.training.checkpoint import (AsyncCheckpointer,
+                                                        restore_checkpoint,
+                                                        save_checkpoint)
+    from visinger_tpu_torch.training.train_state import create_train_state
+    from visinger_tpu_torch.training.train_step import (device_batch,
+                                                        make_train_step)
+    from visinger_tpu_torch.training.trainer import Trainer
+
+    shutil.rmtree(root, ignore_errors=True)
+    data_dir = root / "data"
+    base = visinger_csd()
+    write_corpus(data_dir, TRAIN_ITEMS, VALID_ITEMS, ITEM_TOKENS, ITEM_FRAMES,
+                 base.hop_size)
+    base = base.replace(binary_data_dir=str(data_dir), num_ckpt_keep=3)
+    b, t = base.max_sentences, 640
+
+    def counts():
+        return {"rel_attention_fwd": ra.launches,
+                "rel_attention_bwd": ra.bwd_launches,
+                "wavenet_stack_fwd": ws.launches}
+
+    # 1. fit: 8 steps, the device store, validation at 4 and 8
+    work = root / "store"
+    cfg = base.replace(work_dir=str(work), tb_log_interval=2,
+                       val_check_interval=4, num_sanity_val_steps=1,
+                       eval_max_batches=2)
+    tr = Trainer(cfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ra.launches = ra.bwd_launches = ws.launches = 0
+    t0 = time.perf_counter()
+    state, out = captured(lambda: tr.fit(max_updates=8))
+    fit_s = time.perf_counter() - t0
+    fit_counts = counts()
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check("| sanity val (1 batches)" in out, "trainer: no sanity validation")
+    check(state.step == 8, f"trainer: fit ended at step {state.step}")
+    n_attn = (cfg.enc_layers + cfg.pitch_predictor_layers
+              + cfg.frame_prior_layers + cfg.phoneme_predictor_layers)
+    n_stack = 1 + cfg.flow_n_flows
+    evals = 1 + 2 * 2                  # sanity, then 2 batches at 4 and 8
+    want = {"rel_attention_fwd": n_attn * (8 + evals),
+            "rel_attention_bwd": n_attn * 8,
+            "wavenet_stack_fwd": n_stack * (8 + evals)}
+    check(fit_counts == want, f"trainer: launches {fit_counts} != {want}")
+
+    # 2. a new trainer resumes at 8 and goes on to 10
+    state, out = captured(lambda: Trainer(cfg, device=dev).fit(
+        max_updates=10))
+    check("| resumed from step 8" in out and state.step == 10,
+          f"trainer: resume ended at step {state.step}")
+    files = sorted(os.listdir(work))
+    for name in ("model_ckpt_steps_4.pt", "model_ckpt_steps_8.pt",
+                 "model_ckpt_steps_10.pt", "model_ckpt_best.pt", "best.json",
+                 "log.jsonl"):
+        check(name in files, f"trainer: {name} missing ({files})")
+    best = json.loads((work / "best.json").read_text())
+    log = [json.loads(line) for line in
+           (work / "log.jsonl").read_text().splitlines()]
+    train_steps = [r["step"] for r in log if r["prefix"] == "train"]
+    val = {r["step"]: r["val_loss"] for r in log if r["prefix"] == "val"}
+    check(train_steps == [2, 4, 6, 8, 10] and sorted(val) == [4, 8],
+          f"trainer: log steps {train_steps}, val {sorted(val)}")
+    check(all(np.isfinite(v) for r in log for k, v in r.items()
+              if k not in ("step", "prefix")), "trainer: a non-finite log")
+    check(best["step"] in val and best["val_loss"] == min(val.values()),
+          f"trainer: best.json {best} against {val}")
+
+    # 3. 8 logged steps on each data route (steps 2-8 timed), between two
+    # runs of bare steps on one of the corpus's batches: the host's speed
+    # drifts within a call, so the data plane's cost is read against the
+    # bare steps next to it
+    bare_model, bare_disc = build_models(base, *VOCABS, device=dev, seed=0)
+    bare_state = create_train_state(bare_model, bare_disc, seed=0)
+    bare_step = make_train_step(base, bare_model, bare_disc, device=dev)
+    ds = build_dataset(base, base.train_set_name)
+    bare_batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                  ds.collate([ds[i] for i in range(b)]).items()}
+
+    def time_bare(n: int = 6) -> list:
+        """ms of n - 1 steps on a batch already on the card."""
+        nonlocal bare_state
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            bare_state, _ = bare_step(bare_state, bare_batch)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out[1:]
+
+    bare_before = time_bare()
+    routes = {}
+    for route, on in (("prefetch", False), ("device_store", True)):
+        rcfg = base.replace(work_dir=str(root / route),
+                            device_resident_data=on, tb_log_interval=1,
+                            val_check_interval=10 ** 6,
+                            num_sanity_val_steps=0, save_codes=False)
+        ra.launches = ra.bwd_launches = ws.launches = 0
+        Trainer(rcfg, device=dev).fit(max_updates=ROUTE_STEPS)
+        rc = counts()
+        check(all(v > 0 for v in rc.values()), f"trainer {route}: {rc}")
+        ms = log_ms_per_step(root / route)
+        med = statistics.median(ms)
+        routes[route] = {"step_ms": ms, "median_step_ms": med,
+                         "mel_frames_per_s": b * t / (med / 1e3),
+                         "launches": rc}
+        shutil.rmtree(root / route)
+
+    bare_after = time_bare()
+    bare_med = statistics.median(bare_before + bare_after)
+    del bare_model, bare_disc, bare_state, bare_step
+
+    # which lines wait for the card: 3 unlogged steps under the sync debug
+    # mode (the final checkpoint's host copies are among them)
+    scfg = base.replace(work_dir=str(root / "syncs"), tb_log_interval=10 ** 6,
+                        val_check_interval=10 ** 6, num_sanity_val_steps=0,
+                        save_codes=False)
+    syncs = sync_sites(torch, lambda: Trainer(scfg, device=dev).fit(
+        max_updates=3))
+    shutil.rmtree(root / "syncs")
+
+    # 4. the step-8 checkpoint on the card and on the CPU
+    ckpt8 = str(work / "model_ckpt_steps_8.pt")
+    metrics, trainers = {}, {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        trainers[name] = Trainer(cfg.replace(save_codes=False),
+                                 work_dir=str(root / f"val_{name}"), device=d)
+        st, _ = captured(lambda: restore_checkpoint(
+            ckpt8, trainers[name].init_state()))
+        metrics[name], _ = captured(
+            lambda: trainers[name].validate(st, max_batches=1))
+    rel = {k: abs(metrics["cuda"][k] - v) / max(abs(v), 1e-12)
+           for k, v in metrics["cpu"].items()}
+    check(set(metrics["cuda"]) == set(metrics["cpu"]) and all(
+        np.isfinite(v) for v in metrics["cuda"].values()),
+        f"trainer: validation metrics {metrics}")
+    check(max(rel.values()) <= TOL_VALID_REL, f"trainer: card vs CPU "
+          f"validation {rel} > {TOL_VALID_REL}")
+
+    # costs: eval batches, checkpoint save and restore, the store's upload
+    tr_c = trainers["cuda"]
+    st = restore_checkpoint(ckpt8, tr_c.init_state())
+    t0 = time.perf_counter()
+    captured(lambda: tr_c.validate(st, max_batches=2))
+    eval_ms = (time.perf_counter() - t0) * 1e3 / 2
+    ck = root / "ckpt_timing"
+    t0 = time.perf_counter()
+    path = save_checkpoint(str(ck / "sync"), st)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    size_mb = os.path.getsize(path) / 1e6
+    ac = AsyncCheckpointer()
+    t0 = time.perf_counter()
+    ac.save(str(ck / "async"), st)
+    async_caller_ms = (time.perf_counter() - t0) * 1e3
+    ac.wait()
+    async_total_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    restore_checkpoint(path, st)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store = DeviceStore(ds, dev)
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t0) * 1e3
+    # the data plane's own work per batch, timed alone: the store's gather
+    # (and the step's casts), and the prefetch route's collate + pin on the
+    # producer thread and its copy to the card
+    idxs, t_b, n_b = store.plan_batches(seed=0)[0]
+    idxs = torch.from_numpy(idxs).to(dev)
+    gather_ms = call_ms(torch, lambda: device_batch(gather_batch(
+        store.arrays, idxs, t_b, n_b, base.hop_size), dev))
+    t0 = time.perf_counter()
+    host = list(tr_c._host_batches(ds, seed=0))
+    collate_ms = (time.perf_counter() - t0) * 1e3 / len(host)
+    copy_ms = call_ms(torch, lambda: device_batch(tr_c._to_device(host[0]),
+                                                  dev))
+    phase("trainer", items={"train": TRAIN_ITEMS, "valid": VALID_ITEMS},
+          batch=b, frames=t, fit_steps=8, fit_s=fit_s,
+          launches=fit_counts, resumed_to=10, routes=routes,
+          training_phase_median_step_ms=training_ms,
+          bare_corpus_step_ms={"before": bare_before, "after": bare_after,
+                               "median": bare_med},
+          data_plane_ms={k: r["median_step_ms"] - bare_med
+                         for k, r in routes.items()},
+          eval_ms_per_batch=eval_ms, valid_card=metrics["cuda"],
+          valid_cpu=metrics["cpu"], valid_rel_err=rel,
+          valid_tol=TOL_VALID_REL, best=best,
+          checkpoint_mb=size_mb, save_sync_ms=save_ms,
+          save_async_caller_ms=async_caller_ms,
+          save_async_total_ms=async_total_ms, restore_ms=restore_ms,
+          store_upload_ms=upload_ms, store_mb=store.nbytes / 1e6,
+          store_gather_call_ms=gather_ms, prefetch_collate_pin_ms=collate_ms,
+          prefetch_copy_call_ms=copy_ms,
+          peak_mem_gib=peak_gib, sync_sites_3_steps=syncs)
+    shutil.rmtree(root, ignore_errors=True)
+    return fit_counts
+
+
 def profile_run(torch, fn, tag: str):
     """Device time by kernel and the device idle share of one ``fn()``."""
     from torch.profiler import ProfilerActivity, profile
@@ -1026,7 +1362,7 @@ def main() -> int:
         visinger_csd())
     k2_window = check_wavenet_stack(torch, ws, dev, 4, "stream_window",
                                     t=window, lengths=(window - 30,))
-    train_counts = training(torch, ra, ws, dev, args.profile)
+    train_counts, bare_ms = training(torch, ra, ws, dev, args.profile)
     train_card_vs_cpu(torch, dev)
     synth_counts = synthesis(torch, ra, ws, dev, args.profile)
     scores_dir = ROOT / "build" / "midi_scores"
@@ -1035,6 +1371,8 @@ def main() -> int:
                                             args.profile)
     check(stream_window == window, f"streaming window {stream_window} != "
           f"the checked K2 shape's {window}")
+    trainer_counts = trainer(torch, ra, ws, dev, ROOT / "build" / "trainer",
+                             bare_ms)
 
     k1 = k1_rows[0]  # the frame-rate shape: 12 of the 18 layers per step
     k1_token = k1_rows[1]
@@ -1060,6 +1398,7 @@ def main() -> int:
          "token_bound_tc_ms": k1_token["bound_tc_ms"],
          "synthesis_launches": synth_counts["rel_attention_fwd"],
          "midi_launches": midi_counts["rel_attention_fwd"],
+         "trainer_launches": trainer_counts["rel_attention_fwd"],
          "midi_phrase_shape": k1_phrase["shape"],
          "midi_phrase_ms": k1_phrase["ms"],
          "midi_phrase_plain_ms": k1_phrase["plain_ms"],
@@ -1075,7 +1414,8 @@ def main() -> int:
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
          "bound_tc_ms": k3["bound_tc_ms"],
          "library_ms": None, "shape": f"{k3['shape']}, dropout 0.1",
-         "bit_identical_rerun": True},
+         "bit_identical_rerun": True,
+         "trainer_launches": trainer_counts["rel_attention_bwd"]},
         {"name": "wavenet_stack_fwd", "route": "cuda",
          "source": "visinger_tpu_torch/csrc/wavenet_stack.cu",
          "replaces": "visinger_tpu/ops/pallas/wavenet_kernel.py:115",
@@ -1093,6 +1433,7 @@ def main() -> int:
          "l4_bound_tc_ms": k2_row["bound_tc_ms"],
          "synthesis_launches": synth_counts["wavenet_stack_fwd"],
          "midi_launches": midi_counts["wavenet_stack_fwd"],
+         "trainer_launches": trainer_counts["wavenet_stack_fwd"],
          "window_shape": k2_window["shape"], "window_ms": k2_window["ms"],
          "window_plain_ms": k2_window["plain_ms"],
          "window_bound_ms": k2_window["bound_ms"],

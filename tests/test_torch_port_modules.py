@@ -224,11 +224,19 @@ def _as_tuples(v):
 
 # keys the YAML leaves out, with the default the JAX code reads them with
 # (models/visinger.py, models/factory.py, training/train_step.py,
-# infer/infer.py, infer/vocoder.py)
+# infer/infer.py, infer/vocoder.py, training/trainer.py, data/dataset.py,
+# data/device_store.py; ``exp_name`` is run.py's --exp_name default; JAX
+# reads a missing ``binary_data_dirs`` as None, the port an empty tuple:
+# both mean one corpus)
 _JAX_CODE_DEFAULTS = {"slice_ref_padded": False, "disc_s_base": 16,
                       "disc_p_channels": (32, 128, 512, 1024),
                       "remat_policy": "none", "sp_infer": False,
-                      "griffin_lim_iters": 30}
+                      "griffin_lim_iters": 30, "exp_name": "",
+                      "binary_data_dirs": (), "cache_dataset": True,
+                      "device_resident_data": True,
+                      "device_data_max_mb": 4096, "store_wav_f32": True,
+                      "ship_wav_int16": False, "save_codes": True,
+                      "profile_dir": "", "profile_start_step": 10}
 
 
 @pytest.mark.parametrize("which", ["visinger_csd", "tiny"])
@@ -246,6 +254,33 @@ def test_recipe_matches_yaml(which):
     with pytest.raises(AttributeError):
         port.binarization_args.min_text = 1
     assert hash(port) == hash(port.replace())
+
+
+def test_config_json_round_trip_and_overrides_match_jax():
+    """``to_dict``/``from_dict`` through JSON give the same config;
+    ``parse_overrides`` gives JAX's nested dict; ``apply`` takes dotted keys
+    into the argument dicts, makes lists tuples and refuses unknown keys."""
+    import json
+
+    from visinger_tpu.config import parse_overrides as j_parse
+
+    cfg = port_config.visinger_csd()
+    assert port_config.Config.from_dict(json.loads(json.dumps(
+        cfg.to_dict()))) == cfg
+    spec = ("max_updates=8,frame_buckets=[160, 320],lr=2e-4,"
+            "binarization_args.min_text=2,work_dir='ckpt/a',"
+            "dec_dilation_sizes=[[1, 3], [1, 3]],deterministic_eval=False")
+    over = port_config.parse_overrides(spec)
+    assert over == j_parse(spec)
+    new = cfg.apply(over)
+    assert (new.max_updates, new.frame_buckets, new.lr, new.work_dir) == \
+        (8, (160, 320), 2e-4, "ckpt/a")
+    assert new.dec_dilation_sizes == ((1, 3), (1, 3))
+    assert new.binarization_args.min_text == 2
+    assert new.binarization_args.with_f0 and not new.deterministic_eval
+    for bad in ("no_such_key=1", "binarization_args.no_such_arg=1"):
+        with pytest.raises(KeyError):
+            cfg.apply(port_config.parse_overrides(bad))
 
 
 @pytest.mark.parametrize("hidden,heads,what", [

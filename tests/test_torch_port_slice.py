@@ -28,6 +28,7 @@ from visinger_tpu.data.synthetic import synthetic_batch as jax_synthetic_batch
 from visinger_tpu.models.factory import build_models, init_params
 from visinger_tpu.models.factory import tiny_config as jax_tiny_config
 from visinger_tpu.models.visinger import VISinger as JVISinger
+from visinger_tpu_torch import run
 from visinger_tpu_torch.config import tiny_config
 from visinger_tpu_torch.convert import params_from_jax
 from visinger_tpu_torch.data.synthetic import synthetic_batch
@@ -35,7 +36,9 @@ from visinger_tpu_torch.infer.infer import TorchSynthesizer, VISingerInfer
 from visinger_tpu_torch.infer.streaming import StreamingSynthesizer
 from visinger_tpu_torch.models.factory import build_model
 from visinger_tpu_torch.models.factory import build_models as port_build_models
-from visinger_tpu_torch.training.train_step import make_train_step
+from visinger_tpu_torch.training.train_step import (make_eval_step,
+                                                    make_train_step)
+from visinger_tpu_torch.training.trainer import Trainer
 
 from test_torch_port_modules import fill_params
 
@@ -221,10 +224,12 @@ _FORBIDDEN = re.compile(
 
 def test_port_imports_nothing_of_jax():
     """The port and chip_smoke.py import no jax, flax, yaml or visinger_tpu:
-    a CPU synthesis, a CPU training step (``training/``, ``ops/stft.py``) and
-    a CPU ``VISingerInfer.synthesize`` of a written MIDI file (the front end,
-    ``utils/``, ``data/``) succeed with those modules blocked, and no source
-    names them in an import."""
+    a CPU synthesis, a CPU training step (``training/``, ``ops/stft.py``), a
+    CPU ``VISingerInfer.synthesize`` of a written MIDI file (the front end,
+    ``utils/``, ``data/``) and a 2-step CPU ``Trainer.fit`` on a corpus
+    ``chip_smoke.write_corpus`` binarizes (the data plane, checkpoints, the
+    eval step) succeed with those modules blocked, and no source names them
+    in an import."""
     sources = sorted((REPO / "visinger_tpu_torch").rglob("*.py"))
     sources.append(REPO / "chip_smoke.py")
     for path in sources:
@@ -277,7 +282,18 @@ model = build_model(cfg, len(enc), len(maps["pitch_map"]), len(maps["dur_map"]),
                     device="cpu")
 wav, rtf = VISingerInfer(cfg, model, data_dir, device="cpu").synthesize(midi_fn)
 assert wav.size > 0 and rtf > 0
+import pathlib
 import chip_smoke
+from visinger_tpu_torch.training.trainer import Trainer
+corpus = pathlib.Path(tempfile.mkdtemp())
+chip_smoke.write_corpus(corpus, 4, 2, (8, 12), (40, 60), cfg.hop_size)
+state = Trainer(cfg.replace(binary_data_dir=str(corpus),
+                            work_dir=str(corpus / "work"), tb_log_interval=1,
+                            val_check_interval=2, num_sanity_val_steps=1,
+                            eval_max_batches=1),
+                device="cpu").fit(max_updates=2)
+assert state.step == 2
+assert (corpus / "work" / "model_ckpt_steps_2.pt").exists()
 print("isolated-ok")
 """
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -287,7 +303,8 @@ print("isolated-ok")
     assert "isolated-ok" in proc.stdout
 
 
-def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path,
+                                                           monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default device works")
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -304,3 +321,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     model, disc = port_build_models(tiny_config(), *VOCABS, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         make_train_step(tiny_config(), model, disc)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_eval_step(tiny_config(), model)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(tiny_config(), str(tmp_path))
+    monkeypatch.chdir(tmp_path)     # the CLI writes ./checkpoints/config.json
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run.main(["train"])

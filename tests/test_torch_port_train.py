@@ -39,6 +39,8 @@ from visinger_tpu.training.train_state import \
 from visinger_tpu.training.train_state import \
     make_optimizers as j_make_optimizers
 from visinger_tpu.training.train_step import \
+    make_eval_step as j_make_eval_step
+from visinger_tpu.training.train_step import \
     make_train_step as j_make_train_step
 from visinger_tpu_torch.config import tiny_config
 from visinger_tpu_torch.convert import params_from_jax
@@ -56,7 +58,9 @@ from visinger_tpu_torch.training import losses as PL
 from visinger_tpu_torch.training.train_state import (create_train_state,
                                                      init_adam,
                                                      make_optimizers)
-from visinger_tpu_torch.training.train_step import TrainStep, make_train_step
+from visinger_tpu_torch.training.train_step import (TrainStep,
+                                                    make_eval_step,
+                                                    make_train_step)
 
 from test_torch_port_kernels import (LENGTHS, T_ATT, _attention_inputs,
                                      _pack_heads, load_port, max_err, t)
@@ -441,7 +445,7 @@ def lockstep():
     disc.load_state_dict(params_from_jax(params_d), strict=True)
     return dict(cfg=cfg, raw=raw, jbatch=jbatch, jstate=jstate,
                 apply_train=apply_train, step_fn=step_fn, model=model,
-                disc=disc)
+                disc=disc, jcfg=jcfg, jmodel=jmodel)
 
 
 def jax_draws(pair, jstate):
@@ -515,3 +519,30 @@ def test_train_step_two_step_lockstep_with_jax(lockstep):
     assert state.step == 2 and state.opt_state_d.count == 1
     assert any(not torch.equal(p, p0) for p, p0 in
                zip(disc.parameters(), d_before))
+
+
+def test_eval_step_matches_jax(lockstep):
+    """The port's eval step against the jitted JAX ``make_eval_step`` from
+    the same parameters, with the posterior noise and slice starts JAX
+    draws from its sample key (dropout is 0, so the training apply's draws
+    are the eval step's): every metric within 1e-4 relative.  The model
+    ends in training mode, and the port's own draws (a CPU generator
+    seeded 0) repeat."""
+    cfg, raw, jstate = lockstep["cfg"], lockstep["raw"], lockstep["jstate"]
+    _, k_sample, _ = jax.random.split(jstate.rng, 3)
+    ref = jax.jit(j_make_eval_step(lockstep["jcfg"], lockstep["jmodel"]))(
+        jstate.params_g, lockstep["jbatch"], k_sample)
+    ref_out, eps_q = jax_draws(lockstep, jstate)
+    model, _ = build_models(cfg, *VOCABS, device="cpu")
+    model.load_state_dict(params_from_jax(jstate.params_g), strict=True)
+    model.train()
+    eval_step = make_eval_step(cfg, model, device="cpu")
+    got = eval_step(raw, eps_q=eps_q, ids_slice=ref_out["ids_slice"])
+    assert set(got) == set(ref)
+    for k in ref:
+        r, g = float(ref[k]), float(got[k])
+        assert np.isfinite(g), k
+        assert abs(g - r) <= 1e-4 * abs(r), (k, g, r)
+    assert model.training
+    again = [eval_step(raw) for _ in range(2)]
+    assert all(torch.equal(again[0][k], again[1][k]) for k in again[0])

@@ -1,7 +1,7 @@
 """The ``visinger_csd`` recipe as a Python dataclass (no YAML).
 
-Holds the values the synthesis path, the MIDI front end, serving and the
-training step read, copied from the JAX package's
+Holds the values the synthesis path, the MIDI front end, serving, the
+training step and the trainer read, copied from the JAX package's
 ``config/defaults/{visinger,csd,base}.yaml``; a CPU test holds every field
 against ``load_config(name="visinger_csd")`` (for the keys the YAML leaves
 out, against the default the JAX code reads them with).  The TPU-only knobs
@@ -22,6 +22,7 @@ do not take when it is built for a CUDA device (``check_supported``).
 
 from __future__ import annotations
 
+import ast
 import dataclasses
 from collections.abc import Mapping
 from dataclasses import dataclass
@@ -150,7 +151,7 @@ class Config:
     disc_weight_decay: float = 0.0
     scheduler_gamma: float = 0.999875
     clip_grad_norm: float = 1.0
-    steps_per_epoch: int = 0     # 0: 280, as the JAX make_optimizers
+    steps_per_epoch: int = 0     # 0: the trainer's epoch plan (else 280)
     accumulate_grad_batches: int = 1
     remat_policy: str = "none"
     # the MIDI front end and serving
@@ -165,9 +166,115 @@ class Config:
     out_wav_norm: bool = True
     sp_infer: bool = False
     griffin_lim_iters: int = 30
+    # the trainer: experiment, schedule of logs, validations and checkpoints
+    work_dir: str = "./checkpoints"
+    exp_name: str = ""
+    seed: int = 1234
+    load_ckpt: str = ""
+    num_ckpt_keep: int = 100
+    async_checkpoint: bool = False
+    max_updates: int = 600000
+    tb_log_interval: int = 100
+    num_sanity_val_steps: int = 5
+    val_check_interval: int = 1000
+    deterministic_eval: bool = True
+    eval_max_batches: int = 50
+    profile_dir: str = ""
+    profile_start_step: int = 10
+    save_codes: bool = True
+    # the trainer's data: splits, batching, and where batches are assembled
+    train_set_name: str = "train"
+    valid_set_name: str = "valid"
+    test_set_name: str = "test"
+    binary_data_dirs: tuple = ()
+    max_tokens: int = 60000
+    max_frames: int = 1280
+    cache_dataset: bool = True
+    device_resident_data: bool = True
+    device_data_max_mb: float = 4096
+    store_wav_f32: bool = True
+    ship_wav_int16: bool = False
 
     def replace(self, **overrides) -> "Config":
         return dataclasses.replace(self, **overrides)
+
+    def to_dict(self) -> dict:
+        """The fields as JSON values (tuples as lists, ``Args`` as dicts)."""
+        return {f.name: _plain(getattr(self, f.name))
+                for f in dataclasses.fields(self)}
+
+    @classmethod
+    def from_dict(cls, data: Mapping) -> "Config":
+        """The inverse of ``to_dict``; an unknown key raises ``KeyError``."""
+        return cls().apply(data)
+
+    def apply(self, overrides: Mapping) -> "Config":
+        """A copy with ``overrides`` (``parse_overrides``' nested dict)
+        applied: lists become tuples, a dict merges into an ``Args`` field;
+        an unknown key raises ``KeyError``."""
+        fields = {f.name for f in dataclasses.fields(self)}
+        updates = {}
+        for key, value in overrides.items():
+            if key not in fields:
+                raise KeyError(f"unknown config key {key!r}")
+            old = getattr(self, key)
+            if isinstance(old, Args):
+                unknown = set(value) - set(old)
+                if unknown:
+                    raise KeyError(f"unknown keys {sorted(unknown)} in {key}")
+                value = Args(old, **value)
+            updates[key] = _tuples(value)
+        return self.replace(**updates)
+
+
+def _plain(v):
+    if isinstance(v, Mapping):
+        return {k: _plain(v[k]) for k in v}
+    if isinstance(v, (list, tuple)):
+        return [_plain(e) for e in v]
+    return v
+
+
+def _tuples(v):
+    if isinstance(v, (list, tuple)):
+        return tuple(_tuples(e) for e in v)
+    return v
+
+
+def parse_overrides(spec: str) -> dict:
+    """``"a=1,b.c=2,d=[1, 2, 3]"`` -> a nested dict (the JAX package's
+    ``config/loader.py::parse_overrides``).  Values go through
+    ``ast.literal_eval`` where they parse, else stay strings; commas inside
+    brackets belong to the value."""
+    out: dict = {}
+    parts, depth, cur = [], 0, []
+    for ch in spec:
+        if ch in "([{":
+            depth += 1
+        elif ch in ")]}":
+            depth -= 1
+        if ch == "," and depth == 0:
+            parts.append("".join(cur))
+            cur = []
+        else:
+            cur.append(ch)
+    if cur:
+        parts.append("".join(cur))
+    for part in parts:
+        if not part.strip():
+            continue
+        k, _, v = part.partition("=")
+        k, v = k.strip(), v.strip().strip("'\"")
+        try:
+            val = ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            val = v
+        node = out
+        keys = k.split(".")
+        for kk in keys[:-1]:
+            node = node.setdefault(kk, {})
+        node[keys[-1]] = val
+    return out
 
 
 def check_supported(cfg: Config, device=None) -> None:

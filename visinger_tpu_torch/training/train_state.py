@@ -3,8 +3,9 @@
 
 Two AdamW optimizers (β = (0.8, 0.99), eps 1e-9; weight decay 1e-3 for the
 generator, 0 for the discriminator) behind a global-norm clip of 1.0, with a
-staircase exponential learning-rate decay once per epoch of
-``steps_per_epoch`` optimizer steps (0 in the config: 280).  Each is the
+staircase exponential learning-rate decay once per epoch of optimizer
+steps (``make_optimizers``: the trainer's epoch plan unless the config sets
+``steps_per_epoch``).  Each is the
 optax chain ``clip_by_global_norm -> adamw`` written out, so the same
 gradients give the same parameters: the clip is g·max/‖g‖ when ‖g‖ > max
 (``torch.nn.utils.clip_grad_norm_`` divides by ‖g‖ + 1e-6 instead), Adam
@@ -78,10 +79,16 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(t.square().sum() for t in tensors))
 
 
-def make_optimizers(cfg: Config) -> tuple[ClippedAdamW, ClippedAdamW]:
-    """(generator optimizer, discriminator optimizer); an epoch is
-    ``cfg.steps_per_epoch`` steps, or 280 when that is 0."""
-    common = dict(lr=cfg.lr, decay_steps=cfg.steps_per_epoch or 280,
+def make_optimizers(cfg: Config, steps_per_epoch: int | None = None
+                    ) -> tuple[ClippedAdamW, ClippedAdamW]:
+    """(generator optimizer, discriminator optimizer).  The learning rate
+    decays once per epoch: ``cfg.steps_per_epoch`` when it is above 0, else
+    ``steps_per_epoch`` (the trainer's epoch plan, in batches), else 280;
+    divided by ``accumulate_grad_batches``, since the schedule counts
+    optimizer steps."""
+    spe = cfg.steps_per_epoch or int(steps_per_epoch or 0) or 280
+    spe = max(spe // max(cfg.accumulate_grad_batches, 1), 1)
+    common = dict(lr=cfg.lr, decay_steps=spe,
                   gamma=cfg.scheduler_gamma, b1=cfg.optimizer_adam_beta1,
                   b2=cfg.optimizer_adam_beta2, eps=cfg.eps,
                   max_norm=cfg.clip_grad_norm)

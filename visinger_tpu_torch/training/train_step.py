@@ -32,33 +32,60 @@ from visinger_tpu_torch.training.train_state import (TrainState, global_norm,
                                                      make_optimizers)
 
 
+def device_batch(batch: dict, device: torch.device) -> dict:
+    """The batch as tensors on ``device``: float arrays as float32, int16
+    ``wavs`` (PCM) dequantized to float32 / 32767 as the JAX step does,
+    every other integer array as int64.  A tensor already on ``device`` is
+    not copied."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v if torch.is_tensor(v) else np.asarray(v),
+                            device=device)
+        if k == "wavs" and t.dtype == torch.int16:
+            out[k] = t.float() / 32767.0
+        else:
+            out[k] = t.long() if not t.is_floating_point() else t.float()
+    return out
+
+
+def recon_losses(cfg: Config, stft: STFTParams, b: dict, out: dict,
+                 w) -> dict:
+    """The generator's reconstruction losses but the KL, from the training
+    branch's outputs ``out`` for the device batch ``b``: mel_l1 on the
+    decoded slice, and uv/f0 and ctc where the recipe has those heads."""
+    tgt_slice = log_mel_slices(b["wavs"], out["ids_slice"], cfg.segment_size,
+                               stft)
+    mel_out = log_mel_spectrogram(out["wav_out"], stft)
+    losses = {"mel_l1": L.mel_losses_total(cfg.mel_losses, mel_out,
+                                           tgt_slice, w)}
+    if cfg.use_pitch_embed:
+        losses["uv"], losses["f0"] = L.pitch_losses(
+            out["f0_pred"], b["f0"], b["uv"], b["mel2ph"], cfg.lambda_uv,
+            cfg.lambda_f0, w)
+    if cfg.use_phoneme_pred:
+        losses["ctc"] = L.ctc_loss(
+            out["ph_pred"], b["mel_lengths"], b["text_tokens"],
+            b["text_lengths"], cfg.lambda_ctc, w)
+    return losses
+
+
 class TrainStep:
     """``train_step(state, batch) -> (state, metrics)``; see the module
     docstring.  ``batch`` holds the ``synthetic_batch`` fields (numpy arrays
     or tensors; ``spec`` and ``item_weights`` optional)."""
 
-    def __init__(self, cfg: Config, model, disc, device="cuda"):
+    def __init__(self, cfg: Config, model, disc, device="cuda",
+                 steps_per_epoch: int | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         check_supported(cfg, self.device)
         self.model = model.to(self.device)
         self.disc = disc.to(self.device)
         self.stft = STFTParams.from_config(cfg, self.device)
-        self.opt_g, self.opt_d = make_optimizers(cfg)
+        self.opt_g, self.opt_d = make_optimizers(cfg, steps_per_epoch)
 
     def _batch(self, batch: dict) -> dict:
-        """The batch as tensors on the step's device: float arrays as
-        float32, int16 ``wavs`` (PCM) dequantized to float32 / 32767 as
-        the JAX step does, every other integer array as int64."""
-        out = {}
-        for k, v in batch.items():
-            t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
-                                else v, device=self.device)
-            if k == "wavs" and t.dtype == torch.int16:
-                out[k] = t.float() / 32767.0
-            else:
-                out[k] = t.long() if not t.is_floating_point() else t.float()
-        return out
+        return device_batch(batch, self.device)
 
     def generator_loss(self, state: TrainState, batch: dict, eps_q=None,
                        ids_slice=None):
@@ -84,21 +111,9 @@ class TrainStep:
                 ids_slice, device=self.device))
         losses = {"kl_v": out["kl"].detach(),
                   "kl": L.kl_schedule(out["kl"], step, cfg.kl_min,
-                                      cfg.kl_start_steps, cfg.lambda_kl)}
+                                      cfg.kl_start_steps, cfg.lambda_kl),
+                  **recon_losses(cfg, self.stft, b, out, w)}
         seg, hop = cfg.segment_size, cfg.hop_size
-        tgt_slice = log_mel_slices(b["wavs"], out["ids_slice"], seg,
-                                   self.stft)
-        mel_out = log_mel_spectrogram(out["wav_out"], self.stft)
-        losses["mel_l1"] = L.mel_losses_total(cfg.mel_losses, mel_out,
-                                              tgt_slice, w)
-        if cfg.use_pitch_embed:
-            losses["uv"], losses["f0"] = L.pitch_losses(
-                out["f0_pred"], b["f0"], b["uv"], b["mel2ph"], cfg.lambda_uv,
-                cfg.lambda_f0, w)
-        if cfg.use_phoneme_pred:
-            losses["ctc"] = L.ctc_loss(
-                out["ph_pred"], b["mel_lengths"], b["text_tokens"],
-                b["text_lengths"], cfg.lambda_ctc, w)
         real = slice_segments(b["wavs"], out["ids_slice"] * hop, seg * hop)
         adv_gate = float(step >= cfg.disc_start_steps)
         if cfg.lambda_mel_adv > 0:
@@ -145,7 +160,84 @@ def _grads(loss: torch.Tensor, params: list) -> list[torch.Tensor]:
             for p, g in zip(params, grads)]
 
 
-def make_train_step(cfg: Config, model, disc, device="cuda") -> TrainStep:
+def make_train_step(cfg: Config, model, disc, device="cuda",
+                    steps_per_epoch: int | None = None) -> TrainStep:
     """The train step for ``model`` and ``disc``, moved to ``device``
-    (a CUDA device unless the caller asks for the CPU)."""
-    return TrainStep(cfg, model, disc, device)
+    (a CUDA device unless the caller asks for the CPU); the learning rate
+    decays once per ``steps_per_epoch`` batches (``make_optimizers``)."""
+    return TrainStep(cfg, model, disc, device, steps_per_epoch)
+
+
+# The generator's reconstruction losses: what validation tracks for the best
+# checkpoint (no adversarial, feature-matching or discriminator terms).
+RECON_LOSS_KEYS = ("kl", "mel_l1", "uv", "f0", "ctc")
+
+
+def recon_loss_total(metrics: dict) -> float:
+    return float(sum(float(metrics[k]) for k in RECON_LOSS_KEYS
+                     if k in metrics))
+
+
+class EvalStep:
+    """``eval_step(batch) -> metrics``: the training branch of the
+    generator with every dropout off and no update, and only the
+    reconstruction losses (kl, mel_l1, uv, f0, ctc; the KL without its
+    warm-up schedule) and their sum ``total_g``.
+
+    The posterior noise ``eps_q`` and the slice starts ``ids_slice`` may be
+    given; otherwise each call draws them from a CPU generator seeded 0 and
+    moves them to the device, so a validation loss is the same at every
+    evaluation and on every device.  The model is back in training mode
+    afterwards."""
+
+    def __init__(self, cfg: Config, model, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        check_supported(cfg, self.device)
+        self.model = model.to(self.device)
+        self.stft = STFTParams.from_config(cfg, self.device)
+
+    def draws(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """(eps_q [B, T, H], ids_slice [B]) for a device batch: the normal
+        and then the uniform draw from a CPU generator seeded 0, moved to the
+        device; the slice starts from the uniforms as the model draws them
+        (``ops/masking.py::rand_slice_segments``)."""
+        b, t = batch["mel2ph"].shape
+        gen = torch.Generator().manual_seed(0)
+        eps_q = torch.randn(b, t, self.cfg.hidden_size, generator=gen)
+        u = torch.rand(b, generator=gen).to(self.device)
+        lengths = (torch.full((b,), t, device=self.device)
+                   if self.cfg.slice_ref_padded else batch["mel_lengths"])
+        ids_max = (lengths.long() - self.cfg.segment_size + 1).clamp(min=1)
+        return eps_q.to(self.device), (u * ids_max.float()).long()
+
+    @torch.no_grad()
+    def __call__(self, batch: dict, eps_q=None, ids_slice=None) -> dict:
+        cfg, b = self.cfg, device_batch(batch, self.device)
+        if eps_q is None or ids_slice is None:
+            eps_q, ids_slice = self.draws(b)
+        self.model.eval()
+        try:
+            spec = b.get("spec")
+            if spec is None:
+                spec = power_spectrogram(b["wavs"], self.stft)
+            w = b.get("item_weights")
+            out = self.model(
+                b["text_tokens"], b["note_pitch"], b["note_dur"], b["mel2ph"],
+                spk_id=b.get("spk_ids"), infer=False, f0=b.get("f0"),
+                uv=b.get("uv"), spec=spec, lengths=b.get("mel_lengths"),
+                item_weights=w,
+                eps_q=torch.as_tensor(eps_q, device=self.device).float(),
+                ids_slice=torch.as_tensor(ids_slice, device=self.device))
+        finally:
+            self.model.train()
+        m = {"kl": out["kl"] * cfg.lambda_kl,
+             **recon_losses(cfg, self.stft, b, out, w)}
+        m["total_g"] = sum(m.values())
+        return m
+
+
+def make_eval_step(cfg: Config, model, device="cuda") -> EvalStep:
+    """The deterministic validation step for ``model`` on ``device`` (a CUDA
+    device unless the caller asks for the CPU)."""
+    return EvalStep(cfg, model, device)

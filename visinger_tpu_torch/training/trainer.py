@@ -1,0 +1,349 @@
+"""Training runtime: the epoch and step loop around the train step (the
+counterpart of the JAX package's ``training/trainer.py``), on one device.
+
+Per epoch ``seed + epoch`` plans the batches (``data/dataset.py``).  Two
+data routes:
+
+- ``device_resident_data`` (default): the train and valid splits are
+  uploaded to the device once (``data/device_store.py``) with each epoch's
+  index plan, and each step gathers its rows there;
+- otherwise a producer thread decodes, collates and pins each batch
+  (``data/prefetch.py``) and the loop copies it to the device with
+  ``non_blocking=True`` on the compute stream.
+
+Loss meters stay on the device and are read once per ``tb_log_interval``
+(one transfer), so the loop waits for the device only to log, validate or
+checkpoint.  Every ``val_check_interval`` steps: validation on the
+generator's reconstruction losses (``deterministic_eval``: the eval step
+with fixed draws; else a train step on a copy of the state) and a
+checkpoint, with the best tracked by validation loss.  A run resumes from
+the newest checkpoint of its work dir; as in the JAX package, the epoch
+loop then starts again at epoch 0 (``seed + 0``), without skipping the
+batches the earlier run consumed.  ``log.jsonl`` holds every logged metric,
+mirrored to TensorBoard when ``torch.utils.tensorboard`` imports.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import os
+import shutil
+import sys
+import time
+import types
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from visinger_tpu_torch.config import Config
+from visinger_tpu_torch.data.dataset import batch_by_size, build_dataset
+from visinger_tpu_torch.data.device_store import DeviceStore, gather_batch
+from visinger_tpu_torch.data.prefetch import prefetch
+from visinger_tpu_torch.models.factory import build_models, resolve_device
+from visinger_tpu_torch.training.checkpoint import (AsyncCheckpointer,
+                                                    restore_latest,
+                                                    save_checkpoint,
+                                                    warm_start)
+from visinger_tpu_torch.training.train_state import (TrainState,
+                                                     create_train_state)
+from visinger_tpu_torch.training.train_step import (make_eval_step,
+                                                    make_train_step,
+                                                    recon_loss_total)
+from visinger_tpu_torch.utils.text.token_encoder import build_token_encoder
+
+
+class MetricLogger:
+    """``log.jsonl`` in ``work_dir``, and TensorBoard event files under
+    ``work_dir/tb`` when ``torch.utils.tensorboard`` imports."""
+
+    def __init__(self, work_dir: str):
+        self.path = os.path.join(work_dir, "log.jsonl")
+        os.makedirs(work_dir, exist_ok=True)
+        self._tb = None
+        # Event files need no TensorFlow: tensorboard's own switch
+        # (``tensorboard.compat.notf``) keeps it on its stub API, where it
+        # would otherwise import an installed TensorFlow (~14 s)
+        sys.modules.setdefault("tensorboard.compat.notf",
+                               types.ModuleType("tensorboard.compat.notf"))
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            return
+        self._tb = SummaryWriter(os.path.join(work_dir, "tb"))
+
+    def log(self, step: int, metrics: dict, prefix: str = "train"):
+        rec = {"step": step, "prefix": prefix,
+               **{k: float(v) for k, v in metrics.items()}}
+        with open(self.path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        if self._tb is not None:
+            for k, v in metrics.items():
+                self._tb.add_scalar(f"{prefix}/{k}", float(v), step)
+
+    def flush(self):
+        if self._tb is not None:
+            self._tb.flush()
+
+
+class Trainer:
+    """Trains the generator and the discriminators of ``cfg`` on ``device``
+    (CUDA unless the caller asks for the CPU), from the binarized splits of
+    ``cfg.binary_data_dir`` (or every ``cfg.binary_data_dirs``, which must
+    share the first one's dictionaries), into ``work_dir`` (default
+    ``cfg.work_dir``)."""
+
+    def __init__(self, cfg: Config, work_dir: str | None = None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.work_dir = work_dir or cfg.work_dir
+        data_dir = (cfg.binary_data_dirs[0] if cfg.binary_data_dirs
+                    else cfg.binary_data_dir)
+        self.token_encoder = build_token_encoder(f"{data_dir}/phone_set.json")
+        with open(f"{data_dir}/pitch_map.json") as f:
+            pitch_map = json.load(f)
+        with open(f"{data_dir}/dur_map.json") as f:
+            dur_map = json.load(f)
+        self.model, self.disc = build_models(
+            cfg, len(self.token_encoder), len(pitch_map), len(dur_map),
+            device=self.device, seed=cfg.seed)
+        self.logger = MetricLogger(self.work_dir)
+
+    def init_state(self) -> TrainState:
+        """A fresh train state of the trainer's models (generator seeded
+        from ``cfg.seed``)."""
+        return create_train_state(self.model, self.disc, seed=self.cfg.seed)
+
+    # --- batches ---------------------------------------------------------
+    def _host_batches(self, ds, **kw):
+        """``ds.batches(**kw)`` as CPU tensors, pinned for a CUDA device so
+        that the copy to it can be asynchronous."""
+        pin = self.device.type == "cuda"
+        for batch in ds.batches(**kw):
+            batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+            yield {k: v.pin_memory() for k, v in batch.items()} if pin \
+                else batch
+
+    def _to_device(self, batch: dict) -> dict:
+        return {k: v.to(self.device, non_blocking=True)
+                for k, v in batch.items()}
+
+    def _store_batches(self, store: DeviceStore, plans: list):
+        """The batches of ``plans`` gathered on the device; the plan's
+        indices go to the device in one copy."""
+        if not plans:
+            return
+        idx = torch.from_numpy(np.stack([p[0] for p in plans]))
+        if self.device.type == "cuda":
+            idx = idx.pin_memory()
+        idx = idx.to(self.device, non_blocking=True)
+        for i, (_, t_b, n_b) in enumerate(plans):
+            yield gather_batch(store.arrays, idx[i], t_b, n_b,
+                               self.cfg.hop_size)
+
+    def _valid_batches(self, valid_ds, valid_store, max_batches: int):
+        if valid_store is not None:
+            yield from self._store_batches(
+                valid_store, valid_store.plan_batches(shuffle=False)[
+                    :max_batches])
+            return
+        for i, batch in enumerate(self._host_batches(
+                valid_ds, max_sentences=self.cfg.max_sentences,
+                shuffle=False)):
+            if i >= max_batches:
+                return
+            yield self._to_device(batch)
+
+    # --- the loop --------------------------------------------------------
+    def fit(self, max_updates: int | None = None) -> TrainState:
+        cfg = self.cfg
+        max_updates = max_updates or cfg.max_updates
+        train_ds = build_dataset(cfg, cfg.train_set_name)
+        valid_ds = build_dataset(cfg, cfg.valid_set_name)
+        if cfg.save_codes:
+            self._snapshot_code()
+        state, start_step = restore_latest(self.work_dir, self.init_state())
+        if start_step:
+            print(f"| resumed from step {start_step}")
+        elif cfg.load_ckpt:
+            warm_start(cfg.load_ckpt, state)
+        # the learning rate decays once per epoch of the real plan
+        steps_per_epoch = max(len(batch_by_size(
+            train_ds.item_lengths(), cfg.max_tokens, cfg.max_sentences)), 1)
+        train_step = make_train_step(cfg, self.model, self.disc, self.device,
+                                     steps_per_epoch)
+        ckpt_async = AsyncCheckpointer() if cfg.async_checkpoint else None
+
+        def save_ckpt(val_loss=None):
+            if ckpt_async is not None:
+                ckpt_async.save(self.work_dir, state, cfg.num_ckpt_keep,
+                                val_loss)
+            else:
+                save_checkpoint(self.work_dir, state, cfg.num_ckpt_keep,
+                                val_loss)
+
+        use_store = cfg.device_resident_data
+        est_mb = len(train_ds) * max(cfg.frame_buckets) * cfg.hop_size * 4 \
+            / 1e6
+        if use_store and est_mb > cfg.device_data_max_mb:
+            use_store = False
+            print(f"| device store disabled ({est_mb:.0f} MB > "
+                  f"device_data_max_mb {cfg.device_data_max_mb})")
+        train_store = valid_store = None
+        if use_store:
+            train_store = DeviceStore(train_ds, self.device)
+            valid_store = DeviceStore(valid_ds, self.device)
+
+        eval_step = (make_eval_step(cfg, self.model, self.device)
+                     if cfg.deterministic_eval else None)
+
+        def eval_loss(max_batches: int) -> float:
+            """Mean reconstruction loss over the first valid batches."""
+            totals = []
+            for batch in self._valid_batches(valid_ds, valid_store,
+                                             max_batches):
+                if eval_step is not None:
+                    totals.append(float(eval_step(batch)["total_g"]))
+                else:  # a train step on a copy, the state left as it is
+                    snap = copy.deepcopy(state)
+                    _, m = make_train_step(cfg, snap.model, snap.disc,
+                                           self.device, steps_per_epoch)(
+                        snap, batch)
+                    totals.append(recon_loss_total(m))
+            return float(np.mean(totals)) if totals else float("nan")
+
+        n_sanity = cfg.num_sanity_val_steps
+        if n_sanity > 0 and not start_step:
+            print(f"| sanity val ({n_sanity} batches): "
+                  f"{eval_loss(n_sanity):.3f}")
+
+        # max_updates, val_check_interval and tb_log_interval count
+        # optimizer steps; ``step`` counts batches
+        accum = max(cfg.accumulate_grad_batches, 1)
+        step, epoch, meters, meters_n = start_step, 0, None, 0
+        profiler = None
+        t_start = time.time()
+        try:
+            while step < max_updates * accum:
+                if use_store:
+                    epoch_iter = self._store_batches(
+                        train_store,
+                        train_store.plan_batches(seed=cfg.seed + epoch))
+                else:
+                    epoch_iter = prefetch(self._host_batches(
+                        train_ds, seed=cfg.seed + epoch))
+                n_batches = 0
+                try:
+                    for batch in epoch_iter:
+                        n_batches += 1
+                        if cfg.profile_dir and step == cfg.profile_start_step:
+                            profiler = self._start_profile()
+                        if not use_store:
+                            batch = self._to_device(batch)
+                        state, metrics = train_step(state, batch)
+                        if meters is None:
+                            meters = {k: torch.zeros_like(v)
+                                      for k, v in metrics.items()}
+                        torch._foreach_add_(list(meters.values()),
+                                            [metrics[k] for k in meters])
+                        step += 1
+                        meters_n += 1
+                        opt_step, boundary = step // accum, step % accum == 0
+                        if profiler is not None and \
+                                step == cfg.profile_start_step + 5:
+                            self._stop_profile(profiler, step)
+                            profiler = None
+                        if boundary and opt_step % cfg.tb_log_interval == 0:
+                            now = time.time()
+                            self._log_window(opt_step, meters, meters_n,
+                                             now - t_start)
+                            t_start, meters_n = now, 0
+                        if boundary and opt_step % cfg.val_check_interval == 0:
+                            val_loss = eval_loss(cfg.eval_max_batches)
+                            self.logger.log(opt_step, {"val_loss": val_loss},
+                                            "val")
+                            save_ckpt(val_loss)
+                        if step >= max_updates * accum:
+                            break
+                finally:
+                    epoch_iter.close()      # stops a prefetch producer
+                if n_batches == 0:
+                    raise ValueError(
+                        f"split {cfg.train_set_name!r} gives no batch: no "
+                        "item has more than segment_size and at most "
+                        "max_frames frames")
+                epoch += 1
+            save_ckpt()
+            if ckpt_async is not None:
+                ckpt_async.wait()  # the last write is on disk before return
+        finally:
+            if profiler is not None:
+                self._stop_profile(profiler, step)
+            self.logger.flush()
+        return state
+
+    def _log_window(self, step: int, meters: dict, n: int, seconds: float):
+        """Log and print the meters' means over the window's ``n`` steps
+        (one read from the device) and its steps per second; zero the
+        meters."""
+        names = list(meters)
+        fetched = torch.stack([meters[k] for k in names]).cpu().tolist()
+        avg = {k: v / n for k, v in zip(names, fetched)}
+        avg["steps_per_s"] = self.cfg.tb_log_interval / max(seconds, 1e-9)
+        self.logger.log(step, avg)
+        print(f"| step {step}: " + ", ".join(
+            f"{k}={v:.3f}" for k, v in sorted(avg.items())))
+        torch._foreach_zero_(list(meters.values()))
+
+    def _start_profile(self):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, step: int):
+        """End the trace window and write it as a chrome trace into
+        ``profile_dir``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        fn = os.path.join(self.cfg.profile_dir,
+                          f"trace_steps_{self.cfg.profile_start_step}_"
+                          f"{step}.json")
+        prof.export_chrome_trace(fn)
+        print(f"| profile: {fn}")
+
+    def _snapshot_code(self):
+        """Copy the package's source into the work dir, for the record."""
+        src = Path(__file__).resolve().parents[1]
+        dst = os.path.join(self.work_dir, "codes", src.name)
+        if not os.path.exists(dst):
+            shutil.copytree(src, dst,
+                            ignore=shutil.ignore_patterns("__pycache__"))
+
+    @torch.no_grad()
+    def validate(self, state: TrainState,
+                 max_batches: int | None = None) -> dict:
+        """The eval step's metrics averaged over the valid split (its first
+        ``max_batches`` batches), on the host data route."""
+        cfg = self.cfg
+        valid_ds = build_dataset(cfg, cfg.valid_set_name)
+        eval_step = make_eval_step(cfg, state.model, self.device)
+        sums: dict = {}
+        n = 0
+        for i, batch in enumerate(self._host_batches(
+                valid_ds, max_sentences=cfg.max_sentences, shuffle=False)):
+            if max_batches and i >= max_batches:
+                break
+            for k, v in eval_step(self._to_device(batch)).items():
+                sums[k] = sums.get(k, 0.0) + float(v)
+            n += 1
+        means = {k: v / max(n, 1) for k, v in sums.items()}
+        print(f"| validate ({n} batches): " + ", ".join(
+            f"{k}={v:.4f}" for k, v in sorted(means.items())))
+        return means
