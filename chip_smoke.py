@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port of VISinger on one CUDA card: the GAN
-training step (the main path), synthesis, MIDI-to-waveform serving and the
-trainer.
+training step (the main path), synthesis, MIDI-to-waveform serving, the
+trainer, and the command line's whole drive from a synthetic corpus to a
+tested voice.
 
     python3 chip_smoke.py              # the check (one card)
     python3 chip_smoke.py --profile    # also write torch.profiler summaries
@@ -71,7 +72,21 @@ Phases, each printing a line; any failure raises and exits nonzero:
      relative), the checkpoint files, ``best.json`` and the logs, and the
      costs of an eval batch, a checkpoint save (sync, async) and restore,
      and the device store's upload;
- 10. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+ 10. the pipeline (phase ``pipeline``): the ``tpu_run`` recipe at full
+     width through ``visinger_tpu_torch.run.main`` under
+     ``build/pipeline/``: ``synth-data`` (28 songs of 6-10 notes),
+     ``binarize`` (its route, seconds per item, 4 test, 4 valid and 20
+     train records), ``train`` for 4 steps with a render of 2 valid items
+     at step 4 and ``test_after_train``, and ``test`` from the step-4
+     checkpoint in batches of 4 and of 1; every synthesized waveform and
+     wav file checked (frames x hop long, finite, within +-1, not silent),
+     ``results.json`` (4 items, finite MCD, mel-L1 and V/UV error, the RTF
+     kind of each mode), the launches of the train command and of each
+     render/test group (K1 16, K2 4, no K3), and the first test item from
+     the checkpoint on the card and on the CPU with the same noise (within
+     1e-4 of its peak); binarize seconds, render ms per item, test RTF in
+     both modes, audio-s/s and peak memory are printed;
+ 11. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 
 It imports the port only (no JAX) and exits nonzero, printing no result,
 without a CUDA device or outside a checkout of the repository.
@@ -1271,6 +1286,236 @@ def trainer(torch, ra, ws, dev, root: Path, training_ms: float):
     return fit_counts
 
 
+PIPELINE_SPLITS = {"test": 4, "valid": 4, "train": 20}   # tpu_run: 28 songs
+PIPELINE_TRAIN = ("max_updates=4,render_valid=True,valid_infer_interval=2,"
+                  "num_valid_plots=2,val_check_interval=4,"
+                  "test_after_train=True")
+
+
+def pipeline(torch, ra, ws, dev, root: Path) -> dict:
+    """The ``tpu_run`` recipe at full width, all through
+    ``visinger_tpu_torch.run.main`` in ``root``: ``synth-data`` (28 songs
+    of 6-10 notes), ``binarize`` (route, seconds per item, records per
+    split), ``train`` for 4 steps (validation and a render of 2 valid items
+    at step 4, then the test split), ``test`` from the step-4 checkpoint in
+    batches of 4 and of 1.  Every synthesized waveform (render and test) is
+    checked (frames x hop long, finite, within +-1, not silent) and so is
+    every wav file; the launches per render/test group are counted (K1 16,
+    K2 4, K3 0); the first test item from the checkpoint on the card and on
+    the CPU with the same noise agree within TOL_CPU_REL of its peak.
+    Returns the launches of the ``train`` command."""
+    import gc
+    import os
+    import re
+    import shutil
+
+    import numpy as np
+
+    from visinger_tpu_torch import run
+    from visinger_tpu_torch.config import tpu_run
+    from visinger_tpu_torch.data.dataset import build_dataset
+    from visinger_tpu_torch.models.factory import build_model
+    from visinger_tpu_torch.training import trainer as trainer_mod
+    from visinger_tpu_torch.training.checkpoint import load_checkpoint
+    from visinger_tpu_torch.utils.audio.io import load_wav
+
+    def counts():
+        return {"rel_attention_fwd": ra.launches,
+                "rel_attention_bwd": ra.bwd_launches,
+                "wavenet_stack_fwd": ws.launches}
+
+    # instrumentation, restored below: the launches of each render and test
+    # call, and every waveform the trainer synthesizes
+    groups, synthesized = [], []
+    real = {"render_valid": trainer_mod.Trainer.render_valid,
+            "test": trainer_mod.Trainer.test,
+            "synthesize": trainer_mod.synthesize}
+
+    def counted(name):
+        def wrapper(self, *a, **k):
+            before = counts()
+            n0 = len(synthesized)
+            out = real[name](self, *a, **k)
+            groups.append({"call": name, "batches": len(synthesized) - n0,
+                           "launches": {key: v - before[key]
+                                        for key, v in counts().items()}})
+            return out
+        return wrapper
+
+    def keep_synth(model, batch, seed):
+        wavs, f0 = real["synthesize"](model, batch, seed)
+        synthesized.append((wavs.detach().cpu().numpy(),
+                            batch["mel_lengths"].copy(),
+                            batch["item_weights"].copy()))
+        return wavs, f0
+
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cwd = os.getcwd()
+    os.chdir(root)
+    trainer_mod.Trainer.render_valid = counted("render_valid")
+    trainer_mod.Trainer.test = counted("test")
+    trainer_mod.synthesize = keep_synth
+    cfg = tpu_run()
+    hop, sr = cfg.hop_size, cfg.sample_rate
+    try:
+        run.main(["synth-data", "--config", "tpu_run"])
+        out, bin_out = captured(lambda: run.main(["binarize", "--config",
+                                                  "tpu_run"]))
+        check(out["counts"] == PIPELINE_SPLITS,
+              f"pipeline: binarized {out['counts']} != {PIPELINE_SPLITS}")
+        routes = [ln for ln in bin_out.splitlines()
+                  if ln.startswith("| binarize:")]
+        n_items = sum(out["counts"].values())
+
+        torch.cuda.synchronize()
+        ra.launches = ra.bwd_launches = ws.launches = 0
+        t0 = time.perf_counter()
+        state, train_out = captured(lambda: run.main(
+            ["train", "--config", "tpu_run", "--device", str(dev), "-hp",
+             PIPELINE_TRAIN]))
+        train_s = time.perf_counter() - t0
+        train_counts = counts()
+        check(state.step == 4, f"pipeline: train ended at {state.step}")
+        work = Path(cfg.work_dir)
+        log = [json.loads(line) for line in
+               (work / "log.jsonl").read_text().splitlines()]
+        val = [r["val_loss"] for r in log if r["prefix"] == "val"]
+        check(len(val) == 1 and np.isfinite(val[0]),
+              f"pipeline: validation log {log}")
+
+        # the test runs' peak alone: the train command's state let go
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        tests = {}
+        for per_item in (False, True):
+            results, _ = captured(lambda: run.main(
+                ["test", "--config", "tpu_run", "--device", str(dev), "-hp",
+                 f"per_item_rtf={per_item}"]))
+            saved = json.loads((work / "generated_4" / "results.json"
+                                ).read_text())
+            check(saved == results, "pipeline: results.json != returned")
+            tests["per_item" if per_item else "batch_mean"] = results
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    finally:
+        trainer_mod.Trainer.render_valid = real["render_valid"]
+        trainer_mod.Trainer.test = real["test"]
+        trainer_mod.synthesize = real["synthesize"]
+        os.chdir(cwd)
+    work = root / cfg.work_dir
+    data_cfg = cfg.replace(binary_data_dir=str(root / cfg.binary_data_dir))
+
+    # every synthesized waveform (real rows), and every wav file
+    for wavs, lengths, weights in synthesized:
+        for i in range(int(weights.sum())):
+            w = wavs[i, : int(lengths[i]) * hop]
+            check(np.isfinite(w).all() and np.abs(w).max() <= 1.0
+                  and float(np.std(w)) > 1e-4,
+                  f"pipeline: a synthesized waveform (frames "
+                  f"{int(lengths[i])}) is not finite, within +-1 and "
+                  f"audible: peak {np.abs(w).max()}, std {np.std(w)}")
+    valid_batch = next(build_dataset(data_cfg, cfg.valid_set_name).batches(
+        shuffle=False))
+    rendered = sorted((work / "valid_4").glob("item*.wav"))
+    check(len(rendered) == 2, f"pipeline: rendered {rendered}")
+    for i, fn in enumerate(rendered):
+        wav, _ = load_wav(str(fn))
+        check(len(wav) == int(valid_batch["mel_lengths"][i]) * hop,
+              f"pipeline: {fn.name} has {len(wav)} samples")
+    pngs = sorted(p.name for p in (work / "valid_4").glob("*.png"))
+    tests["after_train"] = json.loads(
+        (work / "test_after_train" / "results.json").read_text())
+    for kind, results in tests.items():
+        check(len(results) == PIPELINE_SPLITS["test"] and all(
+            np.isfinite(r[k]) for r in results
+            for k in ("mcd", "mel_l1", "vuv_error")),
+            f"pipeline: test {kind} results {results}")
+        want_kind = "per_item" if kind == "per_item" else "batch_mean"
+        check(all(r["rtf_kind"] == want_kind for r in results),
+              f"pipeline: test {kind} rtf_kind")
+    for r in tests["batch_mean"]:
+        wav, _ = load_wav(str(work / "generated_4" / "wavs"
+                              / r["wav_fn_pred"]))
+        check(len(wav) == round(r["audio_s"] * sr),
+              f"pipeline: {r['wav_fn_pred']} has {len(wav)} samples")
+
+    # launches per render/test group: K1 16, K2 4, no K3
+    n_attn = (cfg.enc_layers + cfg.pitch_predictor_layers
+              + cfg.frame_prior_layers)
+    per_group = {"rel_attention_fwd": n_attn, "rel_attention_bwd": 0,
+                 "wavenet_stack_fwd": cfg.flow_n_flows}
+    check([(g["call"], g["batches"]) for g in groups] == [
+        ("render_valid", 1), ("test", 1), ("test", 1), ("test", 4)],
+        f"pipeline: render/test calls {groups}")
+    for g in groups:
+        want = {k: v * g["batches"] for k, v in per_group.items()}
+        check(g["launches"] == want, f"pipeline: {g['call']} launches "
+              f"{g['launches']} != {want}")
+    # the train command: 4 steps and 2 eval batches (the sanity batch and
+    # the one valid batch at step 4; deterministic_eval false: each a train
+    # step on a copy), then the render and the test split
+    steps = 4 + 2
+    n_train_attn = n_attn + cfg.phoneme_predictor_layers
+    want = {"rel_attention_fwd": n_train_attn * steps + 2 * n_attn,
+            "rel_attention_bwd": n_train_attn * steps,
+            "wavenet_stack_fwd": (1 + cfg.flow_n_flows) * steps
+            + 2 * cfg.flow_n_flows}
+    check(train_counts == want,
+          f"pipeline: train launches {train_counts} != {want}")
+
+    # the first test item on the card and on the CPU, same checkpoint and ε
+    ckpt = load_checkpoint(str(work / "model_ckpt_steps_4.pt"))
+    first = next(build_dataset(data_cfg, cfg.test_set_name).batches(
+        max_sentences=1, shuffle=False, pad_to_max_sentences=False))
+    t = int(first["mel_lengths"][0])
+    vocabs = [len(json.loads((root / cfg.binary_data_dir / f"{n}.json"
+                              ).read_text()))
+              for n in ("phone_set", "pitch_map", "dur_map")]
+    wavs = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        model = build_model(cfg, *vocabs, device=d)
+        model.load_state_dict(ckpt["model"])
+        w, _ = trainer_mod.synthesize(model, first, 0)
+        wavs[name] = w[0, : t * hop].cpu().numpy()
+        del model
+    err = float(np.abs(wavs["cuda"] - wavs["cpu"]).max())
+    peak = float(np.abs(wavs["cpu"]).max())
+    check(err <= TOL_CPU_REL * peak, f"pipeline: card vs CPU test item "
+          f"{err} > {TOL_CPU_REL} x peak {peak}")
+
+    render_line = next(ln for ln in train_out.splitlines()
+                       if ln.startswith("| render_valid step 4"))
+    render_ms = float(re.search(r"\(([\d.]+) ms per item\)",
+                                render_line).group(1))
+
+    def throughput(results):
+        audio = sum(r["audio_s"] for r in results)
+        return audio / sum(r["rtf"] * r["audio_s"] for r in results)
+
+    bin_s = out["seconds"]
+    phase("pipeline", recipe="tpu_run", items=out["counts"],
+          binarize_s=bin_s, binarize_s_per_item=bin_s / n_items,
+          binarize_routes=routes, train_s=train_s, train_steps=4,
+          train_launches=train_counts, val_loss=val[0],
+          render_ms_per_item=render_ms, render_line=render_line,
+          pngs=pngs or "skipped (matplotlib does not import)",
+          test_rtf_batch_mean=[r["rtf"] for r in tests["batch_mean"]],
+          test_rtf_per_item=[r["rtf"] for r in tests["per_item"]],
+          test_audio_s=[r["audio_s"] for r in tests["per_item"]],
+          audio_s_per_s={k: throughput(v) for k, v in tests.items()},
+          quality_random_weights={k: {m: [r[m] for r in v] for m in (
+              "mcd", "mel_l1", "f0_rmse_cents", "vuv_error")}
+              for k, v in tests.items()},
+          group_launches=groups, per_group=per_group,
+          test_peak_mem_gib=peak_gib, card_vs_cpu_frames=t,
+          card_vs_cpu_max_abs_err=err, card_vs_cpu_peak=peak,
+          card_vs_cpu_tol=TOL_CPU_REL * peak)
+    shutil.rmtree(root, ignore_errors=True)
+    return train_counts
+
+
 def profile_run(torch, fn, tag: str):
     """Device time by kernel and the device idle share of one ``fn()``."""
     from torch.profiler import ProfilerActivity, profile
@@ -1373,6 +1618,8 @@ def main() -> int:
           f"the checked K2 shape's {window}")
     trainer_counts = trainer(torch, ra, ws, dev, ROOT / "build" / "trainer",
                              bare_ms)
+    pipeline_counts = pipeline(torch, ra, ws, dev,
+                               ROOT / "build" / "pipeline")
 
     k1 = k1_rows[0]  # the frame-rate shape: 12 of the 18 layers per step
     k1_token = k1_rows[1]
@@ -1398,6 +1645,7 @@ def main() -> int:
          "token_bound_tc_ms": k1_token["bound_tc_ms"],
          "synthesis_launches": synth_counts["rel_attention_fwd"],
          "midi_launches": midi_counts["rel_attention_fwd"],
+         "pipeline_launches": pipeline_counts["rel_attention_fwd"],
          "trainer_launches": trainer_counts["rel_attention_fwd"],
          "midi_phrase_shape": k1_phrase["shape"],
          "midi_phrase_ms": k1_phrase["ms"],
@@ -1415,6 +1663,7 @@ def main() -> int:
          "bound_tc_ms": k3["bound_tc_ms"],
          "library_ms": None, "shape": f"{k3['shape']}, dropout 0.1",
          "bit_identical_rerun": True,
+         "pipeline_launches": pipeline_counts["rel_attention_bwd"],
          "trainer_launches": trainer_counts["rel_attention_bwd"]},
         {"name": "wavenet_stack_fwd", "route": "cuda",
          "source": "visinger_tpu_torch/csrc/wavenet_stack.cu",
@@ -1433,6 +1682,7 @@ def main() -> int:
          "l4_bound_tc_ms": k2_row["bound_tc_ms"],
          "synthesis_launches": synth_counts["wavenet_stack_fwd"],
          "midi_launches": midi_counts["wavenet_stack_fwd"],
+         "pipeline_launches": pipeline_counts["wavenet_stack_fwd"],
          "trainer_launches": trainer_counts["wavenet_stack_fwd"],
          "window_shape": k2_window["shape"], "window_ms": k2_window["ms"],
          "window_plain_ms": k2_window["plain_ms"],

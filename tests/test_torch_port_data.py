@@ -1,6 +1,7 @@
 """The port's data plane against the JAX package's, on a corpus the JAX
 pipeline writes (``generate_corpus`` + ``Binarizer`` at ``tiny_config``,
-numpy only): the record store, the f0 transforms, ``VISingerDataset``
+numpy only): the record store, the port's ``Binarizer`` on the same
+metadata, the f0 transforms, ``VISingerDataset``
 items and epoch batches, ``batch_by_size`` plans, the device store's plans
 and gathered batches, the prefetcher and the meters.  Everything here is
 held exactly equal: the same arrays, dtypes and values."""
@@ -93,6 +94,26 @@ def test_record_store_reads_and_writes_the_jax_records(corpus, tmp_path):
     for ext in ("data", "idx"):
         assert (tmp_path / f"train.{ext}").read_bytes() == \
             open(f"{binary}/train.{ext}", "rb").read()
+
+
+def test_binarizer_writes_the_jax_records_serially(corpus, tmp_path):
+    """The port's ``Binarizer``, run serially on the metadata the JAX one
+    binarized (through its worker pool), writes the same bytes: records,
+    index, lengths, token maps and the copied dictionaries."""
+    from pathlib import Path
+
+    from visinger_tpu_torch.data.binarizer import Binarizer as PBinarizer
+
+    jcfg, pcfg, binary = corpus
+    PBinarizer(pcfg.apply({
+        "processed_data_dir": jcfg.processed_data_dir,
+        "binary_data_dir": str(tmp_path), "binarize_workers": 1,
+        "binarization_args": jcfg.binarization_args.to_dict()})).process()
+    mine = {p.name: p.read_bytes() for p in tmp_path.iterdir()}
+    ref = {p.name: p.read_bytes() for p in Path(binary).iterdir()}
+    assert set(mine) == set(ref) and len(ref) == 3 * 3 + 5
+    for name in ref:
+        assert mine[name] == ref[name], name
 
 
 def test_f0_transforms_match_jax():

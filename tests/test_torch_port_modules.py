@@ -7,6 +7,7 @@ in another order."""
 
 import dataclasses
 from collections.abc import Mapping
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -225,7 +226,8 @@ def _as_tuples(v):
 # keys the YAML leaves out, with the default the JAX code reads them with
 # (models/visinger.py, models/factory.py, training/train_step.py,
 # infer/infer.py, infer/vocoder.py, training/trainer.py, data/dataset.py,
-# data/device_store.py; ``exp_name`` is run.py's --exp_name default; JAX
+# data/device_store.py, data/binarizer.py, data/wav_processors.py, run.py;
+# ``exp_name`` is run.py's --exp_name default; JAX
 # reads a missing ``binary_data_dirs`` as None, the port an empty tuple:
 # both mean one corpus)
 _JAX_CODE_DEFAULTS = {"slice_ref_padded": False, "disc_s_base": 16,
@@ -236,13 +238,21 @@ _JAX_CODE_DEFAULTS = {"slice_ref_padded": False, "disc_s_base": 16,
                       "device_resident_data": True,
                       "device_data_max_mb": 4096, "store_wav_f32": True,
                       "ship_wav_int16": False, "save_codes": True,
-                      "profile_dir": "", "profile_start_step": 10}
+                      "profile_dir": "", "profile_start_step": 10,
+                      "binarize_workers": 0, "loud_norm_db": -20.0,
+                      "vad_max_silence_length": 12, "synth_n_items": 12,
+                      "synth_notes": (4, 8), "render_valid": False,
+                      "test_after_train": False}
 
 
-@pytest.mark.parametrize("which", ["visinger_csd", "tiny"])
+@pytest.mark.parametrize("which", ["visinger_csd", "tiny", "tpu_run"])
 def test_recipe_matches_yaml(which):
     if which == "tiny":
         port, ref = port_config.tiny_config(), jax_tiny_config()
+    elif which == "tpu_run":
+        port = port_config.tpu_run()
+        ref = load_config(str(Path(__file__).resolve().parents[1]
+                              / "configs" / "tpu_run.yaml"))
     else:
         port, ref = port_config.visinger_csd(), load_config(name="visinger_csd")
     for f in dataclasses.fields(port):

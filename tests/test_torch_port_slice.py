@@ -226,10 +226,12 @@ def test_port_imports_nothing_of_jax():
     """The port and chip_smoke.py import no jax, flax, yaml or visinger_tpu:
     a CPU synthesis, a CPU training step (``training/``, ``ops/stft.py``), a
     CPU ``VISingerInfer.synthesize`` of a written MIDI file (the front end,
-    ``utils/``, ``data/``) and a 2-step CPU ``Trainer.fit`` on a corpus
+    ``utils/``, ``data/``), a 2-step CPU ``Trainer.fit`` on a corpus
     ``chip_smoke.write_corpus`` binarizes (the data plane, checkpoints, the
-    eval step) succeed with those modules blocked, and no source names them
-    in an import."""
+    eval step), and the data pipeline and render/test path (a synthetic
+    corpus, ``Binarizer``, ``Trainer.render_valid`` and ``Trainer.test``
+    with the quality metrics) succeed with those modules blocked, and no
+    source names them in an import."""
     sources = sorted((REPO / "visinger_tpu_torch").rglob("*.py"))
     sources.append(REPO / "chip_smoke.py")
     for path in sources:
@@ -294,6 +296,30 @@ state = Trainer(cfg.replace(binary_data_dir=str(corpus),
                 device="cpu").fit(max_updates=2)
 assert state.step == 2
 assert (corpus / "work" / "model_ckpt_steps_2.pt").exists()
+from visinger_tpu_torch import run
+from visinger_tpu_torch.config import Args, tpu_run
+from visinger_tpu_torch.data import wav_processors
+from visinger_tpu_torch.data.binarizer import Binarizer
+from visinger_tpu_torch.data.dataset import build_dataset
+from visinger_tpu_torch.data.preprocess import Preprocessor
+from visinger_tpu_torch.data.synthetic_corpus import generate_corpus
+from visinger_tpu_torch.utils import plot
+from visinger_tpu_torch.utils.audio import cwt, loudness, spk_embed
+from visinger_tpu_torch.utils.text import processors
+pipe = pathlib.Path(tempfile.mkdtemp())
+pcfg = cfg.replace(
+    processed_data_dir=str(pipe / "p"), binary_data_dir=str(pipe / "b"),
+    work_dir=str(pipe / "w"), binarize_workers=1, save_codes=False,
+    binarization_args=Args(cfg.binarization_args, test_range=(0, 2),
+                           valid_range=(2, 3), train_range=(3, -1),
+                           min_text=2))
+generate_corpus(pcfg.processed_data_dir, n_items=4, notes_per_item=(2, 3))
+assert Binarizer(pcfg).process() == {"test": 2, "valid": 1, "train": 1}
+tr = Trainer(pcfg, device="cpu")
+st = tr.init_state()
+assert len(tr.render_valid(st, build_dataset(pcfg, "valid"), 1)) == 1
+results = tr.test(st)
+assert len(results) == 2 and all(r["mcd"] > 0 for r in results)
 print("isolated-ok")
 """
     env = dict(os.environ, PYTHONPATH=str(REPO))

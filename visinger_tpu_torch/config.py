@@ -1,10 +1,13 @@
-"""The ``visinger_csd`` recipe as a Python dataclass (no YAML).
+"""The ``visinger_csd`` and ``tpu_run`` recipes as Python dataclasses (no
+YAML).
 
 Holds the values the synthesis path, the MIDI front end, serving, the
-training step and the trainer read, copied from the JAX package's
-``config/defaults/{visinger,csd,base}.yaml``; a CPU test holds every field
-against ``load_config(name="visinger_csd")`` (for the keys the YAML leaves
-out, against the default the JAX code reads them with).  The TPU-only knobs
+training step, the trainer, the data pipeline (synthetic corpus,
+preprocessing, binarization) and the render/test path read, copied from the
+JAX package's ``config/defaults/{visinger,csd,base}.yaml`` and
+``configs/tpu_run.yaml``; a CPU test holds every field of each recipe
+against the YAML (for the keys the YAML leaves out, against the default the
+JAX code reads them with).  The TPU-only knobs
 (``attn_impl``, ``use_pallas``, ``decoder_time_fold``/``decoder_polyphase``,
 ``grouped_conv_impl``) have no counterpart: the port has one path.
 
@@ -154,6 +157,19 @@ class Config:
     steps_per_epoch: int = 0     # 0: the trainer's epoch plan (else 280)
     accumulate_grad_batches: int = 1
     remat_policy: str = "none"
+    # the data pipeline: raw corpus -> preprocess -> binarize
+    raw_data_dir: str = "./data/source/svs/csd"
+    processed_data_dir: str = "./data/preprocessed/svs/csd"
+    speaker: str = "csd"
+    pitch_extractor: str = "autocorr"
+    f0_min: int = 50
+    f0_max: int = 1250
+    binarize_workers: int = 0    # 0: one worker per CPU core
+    spk_embed_extractor: str = "mel_stats"
+    loud_norm_db: float = -20.0          # wav processor loud_norm
+    vad_max_silence_length: int = 12     # wav processor trim_sil
+    synth_n_items: int = 12      # run synth-data
+    synth_notes: tuple = (4, 8)
     # the MIDI front end and serving
     binary_data_dir: str = "./data/binarize/svs/csd"
     preprocess_args: Args = PREPROCESS_ARGS
@@ -182,6 +198,15 @@ class Config:
     profile_dir: str = ""
     profile_start_step: int = 10
     save_codes: bool = True
+    debug: bool = False
+    # rendered validation items and the test split
+    render_valid: bool = False
+    valid_infer_interval: int = 1000
+    num_valid_plots: int = 10
+    mel_vmin: float = -7
+    mel_vmax: float = 12
+    test_after_train: bool = False
+    per_item_rtf: bool = False
     # the trainer's data: splits, batching, and where batches are assembled
     train_set_name: str = "train"
     valid_set_name: str = "valid"
@@ -315,6 +340,40 @@ def check_supported(cfg: Config, device=None) -> None:
 def visinger_csd() -> Config:
     """The full-width recipe (VISinger on CSD)."""
     return Config()
+
+
+def tpu_run() -> Config:
+    """The demo run of ``configs/tpu_run.yaml`` on the full-width recipe: a
+    28-item synthetic corpus (4 test, 4 valid, 20 train items) and one
+    800-frame / 96-token bucket."""
+    base = visinger_csd()
+    return base.replace(
+        work_dir="checkpoints/tpu_run",
+        processed_data_dir="./data/synth",
+        binary_data_dir="./data/binary/synth",
+        synth_n_items=28,
+        synth_notes=(6, 10),
+        binarization_args=Args(
+            base.binarization_args, test_range=(0, 4), valid_range=(4, 8),
+            train_range=(8, -1), min_text=2),
+        frame_buckets=(800,),
+        token_buckets=(96,),
+        max_frames=800,
+        max_sentences=4,
+        max_tokens=60000,
+        max_updates=3600,
+        tb_log_interval=25,
+        val_check_interval=500,
+        eval_max_batches=2,
+        num_sanity_val_steps=1,
+        num_ckpt_keep=3,
+        logs_clamp=5.0,
+        deterministic_eval=False,
+        render_valid=False,
+    )
+
+
+RECIPES = {"visinger_csd": visinger_csd, "tpu_run": tpu_run}
 
 
 def tiny_config() -> Config:

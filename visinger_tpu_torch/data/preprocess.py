@@ -1,13 +1,14 @@
-"""The score side of preprocessing: MIDI + lyrics -> per-phoneme rows (the
-port's own copy of the score functions of the JAX package's
-``data/preprocess.py``; its ``Preprocessor`` is not ported yet).
+"""Offline preprocessing: MIDI + lyrics -> metadata.json (the port's own
+copy of the JAX package's ``data/preprocess.py``: on the same raw corpus
+both write the same metadata, phone set, speaker map and processed wavs).
 
-Parity target: reference preprocessor/base_preprocessor.py:146-365 and
+Parity target: reference preprocessor/base_preprocessor.py:38-394 and
 preprocessor/text/ko_sing.py:167-246 —
   pass 1: MIDI -> midi_info rows (MusicBERT-style position quantization,
           tempo/time-signature tracking, "|" silence-note insertion and
           merging by min_sil_dur), Korean syllable -> jamo sub-notes with the
-          onset/coda frame-time rules;
+          onset/coda frame-time rules; wav processing (resampling);
+  then:   phone-set build, speaker map;
   pass 2: <BOS>/<EOS> insertion + phoneme token encoding.
 
 Uses the port's MIDI parser (utils/midi.py) and Hangul decomposition
@@ -15,6 +16,10 @@ Uses the port's MIDI parser (utils/midi.py) and Hangul decomposition
 """
 
 from __future__ import annotations
+
+import glob
+import json
+import os
 
 import numpy as np
 
@@ -304,3 +309,117 @@ def second_pass(midi_info: list, ph_encoder: TokenTextEncoder, spk_id: int):
             ph_tokens.extend(tok)
             phs.append("<EOS>")
     return rows, phs, ph_tokens
+
+
+def resample_wav(wav: np.ndarray, src_sr: int, dst_sr: int) -> np.ndarray:
+    if src_sr == dst_sr:
+        return wav
+    from math import gcd
+
+    from scipy.signal import resample_poly
+
+    g = gcd(src_sr, dst_sr)
+    return resample_poly(wav, dst_sr // g, src_sr // g).astype(np.float32)
+
+
+class Preprocessor:
+    """CSD-style corpus -> metadata.json (+ phone_set/spk_map)."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.processed_dir = cfg.processed_data_dir
+
+    def meta_data(self):
+        """Yield (item_name, midi_fn, lyric_fn_or_None, spk_name).
+
+        CSD layout (config/datasets/svs/csd/preprocess.py:13-35): midi/*.mid
+        with text/*.txt per-note syllable files."""
+        raw = self.cfg.raw_data_dir
+        for midi_fn in sorted(glob.glob(os.path.join(raw, "midi", "*.mid"))):
+            name = os.path.splitext(os.path.basename(midi_fn))[0]
+            lyric_fn = os.path.join(raw, "text", f"{name}.txt")
+            wav_fn = os.path.join(raw, "wav", f"{name}.wav")
+            yield (name, midi_fn, lyric_fn if os.path.exists(lyric_fn) else None,
+                   wav_fn, self.cfg.speaker)
+
+    def load_lyrics(self, lyric_fn: str | None, n_notes: int) -> list[str] | None:
+        if lyric_fn is None:
+            return None
+        with open(lyric_fn, encoding="utf-8") as f:
+            syllables = f.read().split()
+        if len(syllables) != n_notes:
+            raise ValueError(f"{lyric_fn}: {len(syllables)} syllables for "
+                             f"{n_notes} notes")
+        return syllables
+
+    def process(self) -> str:
+        cfg = self.cfg
+        os.makedirs(self.processed_dir, exist_ok=True)
+        wav_dir = os.path.join(self.processed_dir, "wav_processed")
+        os.makedirs(wav_dir, exist_ok=True)
+        pargs = dict(cfg.preprocess_args)
+
+        first_pass = []
+        ph_set: set[str] = set()
+        spk_names: set[str] = set()
+        for name, midi_fn, lyric_fn, wav_fn, spk in self.meta_data():
+            try:
+                midi = MidiFile(midi_fn)
+                lyr = self.load_lyrics(lyric_fn, len(midi.notes))
+                midi_info, min_sil, _text = midi_to_encoding(midi, pargs, lyr)
+                if not midi_info:
+                    continue
+                ph_list, rows = split_syllables(midi_info, cfg)
+                new_wav_fn = self._process_wav(name, wav_fn, wav_dir)
+                first_pass.append({
+                    "item_name": name, "midi_info": rows, "ph": ph_list,
+                    "wav_fn": new_wav_fn, "spk_name": spk,
+                    "silence": min_sil,
+                })
+                ph_set.update(p for p in ph_list if p != "|")
+                spk_names.add(spk)
+            except Exception as e:  # a corrupt item is skipped, not fatal
+                print(f"| preprocess skip {name}: {e!r}")
+
+        ph_set.update(["<BOS>", "<EOS>"])
+        encoder = TokenTextEncoder(sorted(ph_set))
+        encoder.store_to_file(os.path.join(self.processed_dir, "phone_set.json"))
+        spk_map = {s: i for i, s in enumerate(sorted(spk_names))}
+        with open(os.path.join(self.processed_dir, "spk_map.json"), "w") as f:
+            json.dump(spk_map, f, ensure_ascii=False)
+
+        metadata = []
+        for item in first_pass:
+            rows, phs, ph_tokens = second_pass(item["midi_info"], encoder,
+                                               spk_map[item["spk_name"]])
+            metadata.append({
+                "item_name": item["item_name"],
+                "wav_fn": item["wav_fn"],
+                "spk_id": spk_map[item["spk_name"]],
+                "midi_info": rows,
+                "ph": phs,
+                "ph_token": ph_tokens,
+            })
+        meta_fn = os.path.join(self.processed_dir, "metadata.json")
+        with open(meta_fn, "w") as f:
+            json.dump(metadata, f, ensure_ascii=False)
+        print(f"| preprocessed {len(metadata)} items -> {meta_fn}")
+        return meta_fn
+
+    def _process_wav(self, name: str, wav_fn: str, out_dir: str) -> str:
+        from visinger_tpu_torch.data.wav_processors import get_wav_processor_cls
+        from visinger_tpu_torch.utils.audio.io import load_wav, save_wav
+
+        cfg = self.cfg
+        wav, sr = load_wav(wav_fn)
+        for pname in cfg.preprocess_args.get("wav_processors", ["resample"]):
+            proc_cls = get_wav_processor_cls(pname)
+            if proc_cls is None:
+                print(f"| unknown wav processor {pname!r}, skipping")
+                continue
+            wav, sr = proc_cls().process(wav, sr, cfg)
+        if sr != cfg.sample_rate:
+            wav = resample_wav(wav, sr, cfg.sample_rate)
+        out_fn = os.path.join(out_dir, f"{name}.wav")
+        save_wav(wav, out_fn, cfg.sample_rate)
+        return out_fn

@@ -1,31 +1,52 @@
-"""The port's command line: train, validate, infer.
+"""The port's command line: the data pipeline, training, validation, the
+test split and MIDI inference.
 
-  python -m visinger_tpu_torch.run train    --exp_name x [--config cfg.json]
-                                            [--hparams "a=1,b=[1, 2]"]
-  python -m visinger_tpu_torch.run validate --exp_name x
-  python -m visinger_tpu_torch.run infer    --exp_name x --midi song.mid
-                                            --out out.wav [--stream]
-  python -m visinger_tpu_torch.run infer    --exp_name x --midi_dir songs/
-                                            --out_dir gen/
+  python -m visinger_tpu_torch.run synth-data --config tpu_run
+  python -m visinger_tpu_torch.run preprocess --config cfg.json
+  python -m visinger_tpu_torch.run binarize   --config tpu_run
+  python -m visinger_tpu_torch.run train      --config tpu_run [--exp_name x]
+                                              [--hparams "a=1,b=[1, 2]"]
+  python -m visinger_tpu_torch.run test       --config tpu_run
+  python -m visinger_tpu_torch.run validate   --exp_name x
+  python -m visinger_tpu_torch.run infer      --exp_name x --midi song.mid
+                                              --out out.wav [--stream]
+  python -m visinger_tpu_torch.run infer      --exp_name x --midi_dir songs/
+                                              --out_dir gen/
 
-The work dir is ``checkpoints/<exp_name>``.  ``train`` writes the merged
-config there as ``config.json``, and the next launch of the experiment
-reads it back (``--reset`` starts from ``--config`` or the recipe again);
-``validate`` and ``infer`` read it and leave it as it is, so their one-off
-``--hparams`` do not change later training.  ``--config`` is a JSON file of
-``Config`` fields (``Config.to_dict``); ``--hparams`` overrides fields, with
-dotted keys into the argument dicts.  Everything runs on ``--device``
-(default ``cuda``; ``cpu`` runs the kernels' plain versions).
+``synth-data`` writes a synthetic corpus into ``processed_data_dir``
+(``synth_n_items`` songs of ``synth_notes`` notes); ``preprocess`` turns a
+raw CSD layout under ``raw_data_dir`` (``midi/*.mid``, ``wav/*.wav``,
+optional ``text/*.txt``) into the same layout; ``binarize`` writes the
+records of ``binary_data_dir`` from it.  These three are numpy on the host.
+``train`` (then the test split with ``test_after_train``), ``test``,
+``validate`` and ``infer`` run the model on ``--device`` (default ``cuda``;
+``cpu`` runs the kernels' plain versions).
+
+``--config`` is a recipe name (``visinger_csd``, the default, or
+``tpu_run``) or a JSON file of ``Config`` fields (``Config.to_dict``);
+``--hparams`` overrides fields, with dotted keys into the argument dicts.
+With ``--exp_name`` the work dir is ``checkpoints/<exp_name>``, else the
+config's ``work_dir``.  Every command but ``test``, ``validate`` and
+``infer`` writes the merged config there as ``config.json``, and the next
+launch of the experiment (``--exp_name``) reads it back (``--reset``
+starts from ``--config`` again); the read-only commands leave it as it is,
+so their one-off ``--hparams`` do not change later training.  ``--remove``
+asks, then deletes the experiment's work dir first.  ``train`` copies its
+terminal output to ``<work_dir>/terminal_logs/``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import json
 import os
+import shutil
+import sys
+import time
 
-from visinger_tpu_torch.config import Config, parse_overrides, visinger_csd
+from visinger_tpu_torch.config import RECIPES, Config, parse_overrides
 
 
 def load_config_file(path: str) -> Config:
@@ -33,20 +54,32 @@ def load_config_file(path: str) -> Config:
         return Config.from_dict(json.load(f))
 
 
+def load_config_arg(spec: str) -> Config:
+    """A recipe by name, or a JSON file of ``Config`` fields."""
+    if spec in RECIPES:
+        return RECIPES[spec]()
+    return load_config_file(spec)
+
+
 def resolve_config(args, persist: bool = True) -> Config:
     """The experiment's config: its saved ``config.json`` (unless
-    ``--reset``), else ``--config`` or the ``visinger_csd`` recipe; then
-    ``--hparams``.  With ``persist`` it is written to the work dir."""
+    ``--reset``), else ``--config`` (default ``visinger_csd``); then
+    ``--hparams`` and ``--debug``.  With ``persist`` it is written to the
+    work dir."""
     overrides = parse_overrides(args.hparams or "")
+    if args.debug:
+        # reference --debug (hparams.py:39,120): carried in the config
+        overrides["debug"] = True
     work_dir = None
     if args.exp_name:
         work_dir = os.path.join("checkpoints", args.exp_name)
+        if args.remove and os.path.exists(work_dir):
+            remove_work_dir(work_dir)
         saved = os.path.join(work_dir, "config.json")
         if os.path.exists(saved) and not args.reset:
             return load_config_file(saved).apply(overrides).replace(
                 work_dir=work_dir, exp_name=args.exp_name)
-    cfg = load_config_file(args.config) if args.config else visinger_csd()
-    cfg = cfg.apply(overrides)
+    cfg = load_config_arg(args.config or "visinger_csd").apply(overrides)
     if work_dir:
         cfg = cfg.replace(work_dir=work_dir, exp_name=args.exp_name)
     if persist and cfg.work_dir:
@@ -56,14 +89,104 @@ def resolve_config(args, persist: bool = True) -> Config:
     return cfg
 
 
+def remove_work_dir(work_dir: str) -> None:
+    """reference --remove (hparams.py:110-113): ask, then delete the work
+    dir; no answer (end of input) is the default N."""
+    try:
+        answer = input("REMOVE old checkpoint? Y/N [Default: N]: ")
+    except EOFError:
+        answer = "n"
+    if answer.strip().lower() == "y":
+        shutil.rmtree(work_dir)
+        print(f"| removed {work_dir}")
+
+
+class _Tee:
+    """Writes to a stream and to a log file (reference Tee,
+    utils/commons/trainer.py:28-43)."""
+
+    def __init__(self, stream, f):
+        self._stream, self._f = stream, f
+
+    def write(self, data):
+        self._stream.write(data)
+        self._f.write(data)
+
+    def flush(self):
+        self._stream.flush()
+        self._f.flush()
+
+    def __getattr__(self, name):
+        return getattr(self._stream, name)
+
+
+@contextlib.contextmanager
+def tee_terminal(work_dir: str):
+    """Copy stdout and stderr into ``work_dir/terminal_logs/log_<time>.txt``
+    while the block runs; the streams are restored after it."""
+    log_dir = os.path.join(work_dir, "terminal_logs")
+    os.makedirs(log_dir, exist_ok=True)
+    fn = os.path.join(log_dir, f"log_{int(time.time())}.txt")
+    out, err = sys.stdout, sys.stderr
+    with open(fn, "a", buffering=1) as f:
+        sys.stdout, sys.stderr = _Tee(out, f), _Tee(err, f)
+        try:
+            yield fn
+        finally:
+            sys.stdout, sys.stderr = out, err
+
+
+def cmd_synth_data(args):
+    from visinger_tpu_torch.data.synthetic_corpus import generate_corpus
+
+    cfg = resolve_config(args)
+    n_items = args.n_items or cfg.synth_n_items
+    notes = tuple(cfg.synth_notes)
+    meta_fn = generate_corpus(cfg.processed_data_dir, n_items=n_items,
+                              sample_rate=cfg.sample_rate,
+                              notes_per_item=notes)
+    print(f"| synthetic corpus at {cfg.processed_data_dir} "
+          f"({n_items} items, {notes[0]}-{notes[1]} notes)")
+    return meta_fn
+
+
+def cmd_preprocess(args):
+    from visinger_tpu_torch.data.preprocess import Preprocessor
+
+    return Preprocessor(resolve_config(args)).process()
+
+
+def cmd_binarize(args):
+    """-> {"counts": {split: records}, "seconds": s}."""
+    from visinger_tpu_torch.data.binarizer import Binarizer
+
+    cfg = resolve_config(args)
+    t0 = time.perf_counter()
+    counts = Binarizer(cfg).process()
+    seconds = time.perf_counter() - t0
+    n = sum(counts.values())
+    print(f"| binarized {counts} into {cfg.binary_data_dir} in "
+          f"{seconds:.2f} s ({seconds / max(n, 1):.3f} s per item)")
+    return {"counts": counts, "seconds": seconds}
+
+
 def cmd_train(args):
+    """Train; with ``test_after_train``, then synthesize the test split with
+    the final state into ``<work_dir>/test_after_train``."""
     from visinger_tpu_torch.training.trainer import Trainer
 
-    Trainer(resolve_config(args), device=args.device).fit()
+    cfg = resolve_config(args)
+    with tee_terminal(cfg.work_dir):
+        trainer = Trainer(cfg, device=args.device)
+        state = trainer.fit()
+        if cfg.test_after_train:
+            trainer.test(state, out_dir=os.path.join(cfg.work_dir,
+                                                     "test_after_train"))
+    return state
 
 
-def cmd_validate(args):
-    """Validation losses of the newest checkpoint."""
+def _trainer_at_latest(args):
+    """(config, trainer, state) of the newest checkpoint of the work dir."""
     from visinger_tpu_torch.training.checkpoint import restore_latest
     from visinger_tpu_torch.training.trainer import Trainer
 
@@ -72,7 +195,21 @@ def cmd_validate(args):
     state, step = restore_latest(cfg.work_dir, tr.init_state())
     if step == 0:
         raise SystemExit(f"no checkpoint in {cfg.work_dir}")
-    print(f"| validating from step {step}")
+    return cfg, tr, state
+
+
+def cmd_test(args):
+    """The test split from the newest checkpoint: wavs, RTF and quality
+    metrics in ``<work_dir>/generated_<step>``."""
+    _, tr, state = _trainer_at_latest(args)
+    print(f"| testing from step {state.step}")
+    return tr.test(state)
+
+
+def cmd_validate(args):
+    """Validation losses of the newest checkpoint."""
+    cfg, tr, state = _trainer_at_latest(args)
+    print(f"| validating from step {state.step}")
     return tr.validate(state, max_batches=cfg.eval_max_batches or None)
 
 
@@ -129,19 +266,35 @@ def cmd_infer(args):
     return rtf
 
 
+COMMANDS = {"synth-data": cmd_synth_data, "preprocess": cmd_preprocess,
+            "binarize": cmd_binarize, "train": cmd_train, "test": cmd_test,
+            "validate": cmd_validate, "infer": cmd_infer}
+MODEL_COMMANDS = ("train", "test", "validate", "infer")
+
+
 def main(argv=None):
+    """Parse ``argv`` and run the command; returns what the command
+    returns."""
     p = argparse.ArgumentParser(prog="visinger_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
-    for name, fn in [("train", cmd_train), ("validate", cmd_validate),
-                     ("infer", cmd_infer)]:
+    for name, fn in COMMANDS.items():
         sp = sub.add_parser(name)
         sp.add_argument("--config", default="",
-                        help="a JSON file of Config fields")
+                        help="a recipe name (" + ", ".join(RECIPES)
+                             + ") or a JSON file of Config fields")
         sp.add_argument("--exp_name", default="")
         sp.add_argument("-hp", "--hparams", default="")
         sp.add_argument("--reset", action="store_true",
                         help="ignore the experiment's saved config.json")
-        sp.add_argument("--device", default="cuda")
+        sp.add_argument("--remove", action="store_true",
+                        help="delete the experiment's work dir (asks "
+                             "first) before the command runs")
+        sp.add_argument("--debug", action="store_true")
+        if name in MODEL_COMMANDS:
+            sp.add_argument("--device", default="cuda")
+        if name == "synth-data":
+            sp.add_argument("--n_items", type=int, default=0,
+                            help="0: the config's synth_n_items")
         if name == "infer":
             sp.add_argument("--midi", default="")
             sp.add_argument("--midi_dir", default="",

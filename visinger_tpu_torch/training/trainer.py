@@ -21,6 +21,16 @@ the newest checkpoint of its work dir; as in the JAX package, the epoch
 loop then starts again at epoch 0 (``seed + 0``), without skipping the
 batches the earlier run consumed.  ``log.jsonl`` holds every logged metric,
 mirrored to TensorBoard when ``torch.utils.tensorboard`` imports.
+
+With ``render_valid``, each validation at a multiple of
+``valid_infer_interval`` also synthesizes the first ``num_valid_plots``
+valid items into ``valid_{step}/`` (wavs, mel PNGs when matplotlib imports,
+TensorBoard audio and figures).  ``Trainer.test`` synthesizes the test
+split into ``generated_{step}/`` with its RTF and objective-quality metrics
+(``results.json``).  Both synthesize with ``VISinger.forward(infer=True)``,
+the prior noise drawn from a CPU generator (seeded with the step, or 0 for
+the test) and moved to the device, so the card and the CPU see the same
+noise.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ from visinger_tpu_torch.data.dataset import batch_by_size, build_dataset
 from visinger_tpu_torch.data.device_store import DeviceStore, gather_batch
 from visinger_tpu_torch.data.prefetch import prefetch
 from visinger_tpu_torch.models.factory import build_models, resolve_device
+from visinger_tpu_torch.ops.stft import STFTParams, log_mel_spectrogram
 from visinger_tpu_torch.training.checkpoint import (AsyncCheckpointer,
                                                     restore_latest,
                                                     save_checkpoint,
@@ -82,9 +93,59 @@ class MetricLogger:
             for k, v in metrics.items():
                 self._tb.add_scalar(f"{prefix}/{k}", float(v), step)
 
+    # TB media (reference save_valid_result/plot_mel pushes rendered audio
+    # and mel figures into TensorBoard, tasks/visinger.py:175-185 +
+    # tasks/base.py:249-271) — no-ops when TB is unavailable.
+    def add_audio(self, tag: str, wav, step: int, sample_rate: int):
+        if self._tb is None:
+            return
+        w = torch.from_numpy(np.asarray(wav, np.float32)).clamp(-1.0, 1.0)
+        self._tb.add_audio(tag, w.unsqueeze(0), step, sample_rate=sample_rate)
+
+    def add_figure(self, tag: str, fig, step: int):
+        """Log a matplotlib figure and close it."""
+        import matplotlib.pyplot as plt
+
+        if self._tb is not None:
+            self._tb.add_figure(tag, fig, step, close=False)
+        plt.close(fig)
+
     def flush(self):
         if self._tb is not None:
             self._tb.flush()
+
+
+@torch.no_grad()
+def synthesize(model, batch: dict, seed: int
+               ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """``model.forward(infer=True)`` in eval mode on a host batch (numpy
+    arrays, ``VISingerDataset.collate``'s layout) -> (waveforms [B, T*hop],
+    f0_pred [B, T, 2] or None) on the model's device.  The prior noise
+    [B, T, H] comes from a CPU generator seeded with ``seed`` and is moved
+    to the device."""
+    dev = next(model.parameters()).device
+    x = {k: torch.from_numpy(np.asarray(batch[k])).to(dev)
+         for k in ("text_tokens", "note_pitch", "note_dur", "mel2ph",
+                   "spk_ids")}
+    b, t = x["mel2ph"].shape
+    eps = torch.randn(b, t, model.cfg.hidden_size,
+                      generator=torch.Generator().manual_seed(seed)).to(dev)
+    was_training = model.training
+    model.eval()
+    try:
+        out = model(x["text_tokens"], x["note_pitch"], x["note_dur"],
+                    x["mel2ph"], spk_id=x["spk_ids"], infer=True, eps=eps)
+    finally:
+        model.train(was_training)
+    return out["wav_out"], out.get("f0_pred")
+
+
+def _matplotlib_ok() -> bool:
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
 
 
 class Trainer:
@@ -110,6 +171,7 @@ class Trainer:
             cfg, len(self.token_encoder), len(pitch_map), len(dur_map),
             device=self.device, seed=cfg.seed)
         self.logger = MetricLogger(self.work_dir)
+        self._png_skip_said = False
 
     def init_state(self) -> TrainState:
         """A fresh train state of the trainer's models (generator seeded
@@ -265,6 +327,9 @@ class Trainer:
                             self.logger.log(opt_step, {"val_loss": val_loss},
                                             "val")
                             save_ckpt(val_loss)
+                            if cfg.render_valid and \
+                                    opt_step % cfg.valid_infer_interval == 0:
+                                self.render_valid(state, valid_ds, opt_step)
                         if step >= max_updates * accum:
                             break
                 finally:
@@ -347,3 +412,168 @@ class Trainer:
         print(f"| validate ({n} batches): " + ", ".join(
             f"{k}={v:.4f}" for k, v in sorted(means.items())))
         return means
+
+    # --- rendered validation items and the test split --------------------
+    def render_valid(self, state: TrainState, valid_ds, step: int,
+                     n_items: int | None = None) -> list[str]:
+        """Synthesize the first ``n_items`` (default ``num_valid_plots``)
+        valid items with noise seeded by ``step`` and write
+        ``valid_{step}/item{i}.wav`` and, when matplotlib imports,
+        ``item{i}_mel.png`` (mel with f0 overlays and duration ticks); with
+        TensorBoard, the audio, the ground truth's audio in the first render
+        window and a predicted-beside-true mel figure (reference
+        save_valid_result, tasks/visinger.py:175-185).  Padding rows are not
+        rendered.  Prints the synthesis time; returns the wav paths."""
+        from visinger_tpu_torch.utils.audio.io import save_wav
+        from visinger_tpu_torch.utils.audio.pitch import denorm_f0
+        from visinger_tpu_torch.utils.plot import save_spec_png, spec_to_figure
+
+        cfg, hop, sr = self.cfg, self.cfg.hop_size, int(self.cfg.sample_rate)
+        n_items = cfg.num_valid_plots if n_items is None else n_items
+        out_dir = os.path.join(self.work_dir, f"valid_{step}")
+        os.makedirs(out_dir, exist_ok=True)
+        mel_params = STFTParams.from_config(cfg, self.device)
+        png = _matplotlib_ok()
+        if not png and not self._png_skip_said:
+            print("| render_valid: matplotlib does not import; mel PNGs and "
+                  "TensorBoard figures skipped")
+            self._png_skip_said = True
+        tb_on = self.logger._tb is not None
+        vmin, vmax = cfg.mel_vmin, cfg.mel_vmax
+        written, synth_s = [], 0.0
+        for batch in valid_ds.batches(max_sentences=cfg.max_sentences,
+                                      shuffle=False):
+            if len(written) >= n_items:
+                break
+            self._sync()
+            t0 = time.perf_counter()
+            wavs, f0_pred = synthesize(state.model, batch, step)
+            mels = log_mel_spectrogram(wavs, mel_params)
+            self._sync()
+            synth_s += time.perf_counter() - t0
+            wavs, mels = wavs.cpu().numpy(), mels.cpu().numpy()
+            f0_pred = None if f0_pred is None else f0_pred.cpu().numpy()
+            if tb_on:
+                gt_wavs = torch.from_numpy(batch["wavs"]).float()
+                if batch["wavs"].dtype == np.int16:
+                    gt_wavs = gt_wavs / 32767.0
+                gt_wavs = gt_wavs.to(self.device)
+                gt_mels = log_mel_spectrogram(gt_wavs, mel_params
+                                              ).cpu().numpy()
+                gt_wavs = gt_wavs.cpu().numpy()
+            n_real = int(batch["item_weights"].sum())
+            for i in range(min(n_real, n_items - len(written))):
+                done = len(written)
+                t = int(batch["mel_lengths"][i])
+                wav = wavs[i, : t * hop]
+                fn = f"{out_dir}/item{done}.wav"
+                save_wav(wav, fn, sr, norm=True)
+                written.append(fn)
+                f0s = {"f0_gt": denorm_f0(batch["f0"][i][:t],
+                                          uv=batch["uv"][i][:t])}
+                if f0_pred is not None:
+                    f0s["f0_pred"] = denorm_f0(
+                        f0_pred[i, :t, 0], uv=(f0_pred[i, :t, 1] > 0))
+                duration_gt = np.bincount(batch["mel2ph"][i][:t])[1:]
+                dur_info = {"duration_gt": duration_gt}
+                if png:
+                    save_spec_png(f"{out_dir}/item{done}_mel.png",
+                                  mels[i, :t], vmin=vmin, vmax=vmax, f0s=f0s,
+                                  dur_info=dur_info)
+                if tb_on:
+                    peak = max(float(np.max(np.abs(wav))), 1e-6)
+                    self.logger.add_audio(f"wav_val_{done}", wav / peak,
+                                          step, sr)
+                    if step <= cfg.valid_infer_interval:
+                        self.logger.add_audio(f"wav_gt_{done}",
+                                              gt_wavs[i, : t * hop], step, sr)
+                    if png:
+                        side_by_side = np.concatenate(
+                            [mels[i, :t], gt_mels[i, :t]], axis=-1)
+                        self.logger.add_figure(
+                            f"mel_val_{done}",
+                            spec_to_figure(side_by_side, vmin=vmin,
+                                           vmax=vmax, f0s=f0s,
+                                           dur_info=dur_info), step)
+        n = len(written)
+        print(f"| render_valid step {step}: {n} items, synthesis "
+              f"{synth_s * 1e3:.1f} ms ({synth_s * 1e3 / max(n, 1):.1f} ms "
+              f"per item), pngs {'written' if png else 'skipped'} -> "
+              f"{out_dir}")
+        return written
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def test(self, state: TrainState, out_dir: str | None = None
+             ) -> list[dict]:
+        """Synthesize the test split with noise seeded 0 into
+        ``out_dir/wavs`` (default ``generated_{step}``) and measure RTF and
+        objective quality against the ground truth per item (reference
+        VISingerTask.test_step, tasks/visinger.py:244-263; the reference
+        records RTF only).  ``per_item_rtf``: batches of 1, each item timed
+        alone (``rtf_kind`` "per_item"); else batches of ``max_sentences``
+        padded by repeating the last item, and every item of a batch gets
+        the batch's RTF ("batch_mean").  The clock stops after the device
+        has finished (``torch.cuda.synchronize``); the copy to the host and
+        the metrics are outside it.  Padding rows count neither as results
+        nor as audio seconds.  Writes ``results.json``, prints a summary
+        line and returns the results."""
+        from visinger_tpu_torch.utils.audio.io import save_wav
+        from visinger_tpu_torch.utils.audio.quality import (f0_metrics, mcd,
+                                                            mel_l1_np)
+
+        cfg, hop, sr = self.cfg, self.cfg.hop_size, self.cfg.sample_rate
+        mel_params = STFTParams.from_config(cfg)
+        test_ds = build_dataset(cfg, cfg.test_set_name)
+        out_dir = out_dir or os.path.join(self.work_dir,
+                                          f"generated_{state.step}")
+        os.makedirs(os.path.join(out_dir, "wavs"), exist_ok=True)
+        per_item = cfg.per_item_rtf
+        results = []
+        for batch in test_ds.batches(
+                max_sentences=1 if per_item else cfg.max_sentences,
+                shuffle=False, pad_to_max_sentences=not per_item):
+            self._sync()
+            t0 = time.perf_counter()
+            wavs, _ = synthesize(state.model, batch, 0)
+            self._sync()
+            dt = time.perf_counter() - t0
+            wavs = wavs.cpu().numpy()
+            weights = batch["item_weights"]
+            batch_audio_s = float(np.sum(batch["mel_lengths"] * weights)) \
+                * hop / sr
+            for i in range(int(weights.sum())):
+                t = int(batch["mel_lengths"][i])
+                wav = wavs[i, : t * hop]
+                fn = f"item_{len(results):04d}_synth.wav"
+                save_wav(wav, os.path.join(out_dir, "wavs", fn), sr,
+                         norm=cfg.out_wav_norm)
+                gt = batch["wavs"][i][: t * hop]
+                gt = gt.astype(np.float32) / (32767.0 if gt.dtype == np.int16
+                                              else 1.0)
+                f0m = f0_metrics(gt, wav, sr, hop, float(cfg.f0_min),
+                                 float(cfg.f0_max))
+                results.append({
+                    "wav_fn_pred": fn,
+                    "audio_s": t * hop / sr,
+                    "rtf": dt / max(batch_audio_s, 1e-9),
+                    "rtf_kind": "per_item" if per_item else "batch_mean",
+                    "mcd": round(mcd(gt, wav, mel_params), 3),
+                    "mel_l1": round(mel_l1_np(gt, wav, mel_params), 4),
+                    "f0_rmse_cents": round(f0m["f0_rmse_cents"], 1),
+                    "vuv_error": round(f0m["vuv_error"], 4),
+                })
+        with open(os.path.join(out_dir, "results.json"), "w") as f:
+            json.dump(results, f, indent=1)
+        if results:
+            def mean(key, fn=np.mean):
+                return float(fn([r[key] for r in results]))
+
+            print(f"| test: {len(results)} items, mean RTF {mean('rtf'):.4f} "
+                  f"({results[0]['rtf_kind']}), MCD {mean('mcd'):.2f} dB, "
+                  f"mel-L1 {mean('mel_l1'):.3f}, f0-RMSE "
+                  f"{mean('f0_rmse_cents', np.nanmean):.0f} cents, V/UV err "
+                  f"{mean('vuv_error', np.nanmean):.3f} -> {out_dir}")
+        return results

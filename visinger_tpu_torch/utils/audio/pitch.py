@@ -1,16 +1,34 @@
 """F0 transforms (numpy): log2 normalization with unvoiced interpolation,
-and its inverse.  An own copy of the JAX package's ``utils/audio/pitch.py``
-(``norm_f0``, ``norm_interp_f0``, ``denorm_f0``).
+its inverse, and mel-scale coarse quantization.  An own copy of the JAX
+package's ``utils/audio/pitch.py`` (``f0_to_coarse``, ``norm_f0``,
+``norm_interp_f0``, ``denorm_f0``).
 
-Norm is ``log2(f0 + 1)``; denorm clamps to [50, 1250] Hz.
+Norm is ``log2(f0 + 1)``; denorm clamps to [50, 1250] Hz; coarse
+quantization uses 300 mel-spaced bins over [50, 1250].
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+F0_BIN = 300
 F0_MAX = 1250.0
 F0_MIN = 50.0
+_F0_MEL_MIN = 1127 * np.log(1 + F0_MIN / 700)
+_F0_MEL_MAX = 1127 * np.log(1 + F0_MAX / 700)
+
+
+def f0_to_coarse(f0: np.ndarray) -> np.ndarray:
+    """Quantize f0 (Hz) to [1, 299] mel-spaced bins; 0/unvoiced -> bin 1."""
+    f0 = np.asarray(f0, dtype=np.float64)
+    f0_mel = 1127 * np.log(1 + f0 / 700)
+    scaled = np.where(
+        f0_mel > 0,
+        (f0_mel - _F0_MEL_MIN) * (F0_BIN - 2) / (_F0_MEL_MAX - _F0_MEL_MIN) + 1,
+        f0_mel,
+    )
+    scaled = np.clip(scaled, 1, F0_BIN - 1)
+    return np.rint(scaled).astype(np.int64)
 
 
 def norm_f0(f0: np.ndarray) -> np.ndarray:
