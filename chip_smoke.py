@@ -6,10 +6,10 @@ tested voice.
 
     python3 chip_smoke.py              # the check (one card)
     python3 chip_smoke.py --profile    # also write torch.profiler summaries
-                                       # of one training step, one
-                                       # synthesis group and one MIDI score
-                                       # (full and streamed) under
-                                       # chiprun_out/
+                                       # of one training step (float32 and
+                                       # bf16), one synthesis group and one
+                                       # MIDI score (full and streamed)
+                                       # under chiprun_out/
 
 Phases, each printing a line; any failure raises and exits nonzero:
   1. the card's name and power limit (nvidia-smi); TF32 off for matmuls and
@@ -31,7 +31,15 @@ Phases, each printing a line; any failure raises and exits nonzero:
      second seed's different mask;
   4. K3 (attention backward) against autograd of the plain version at both
      shapes, dropout off and 0.1, with a random g; a second run on the same
-     inputs must give bit-identical gradients;
+     inputs must give bit-identical gradients; then the bf16 builds of K1
+     and K3 (phases ``k1_bf16``, ``k3_bf16``) against the plain versions on
+     the same bf16 q, k, v at [4, 640, 192], [4, 192, 192] and a ragged
+     [4, 637, 192], dropout off and 0.1: bf16 results within one bf16 ulp
+     of their peak, K1's row max and sum within 1e-5, the float32 emb
+     gradients within 1e-3 of their peak, K3 bit-identical on a rerun;
+     their times beside the float32 builds' and, for K1,
+     ``scaled_dot_product_attention`` in bf16; bounds at the bf16 dense
+     tensor-core rate;
   5. K2 (WaveNet stack) at the flow shape x [4, 640, 192], L=4, at the
      posterior shape, L=16, where the gradients of its autograd function are
      also held against plain autograd, and at the streaming window
@@ -86,7 +94,23 @@ Phases, each printing a line; any failure raises and exits nonzero:
      the checkpoint on the card and on the CPU with the same noise (within
      1e-4 of its peak); binarize seconds, render ms per item, test RTF in
      both modes, audio-s/s and peak memory are printed;
- 11. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+ 11. the ``soak_r5`` recipe, bf16 compute (phase ``bf16``): a synthesis
+     group of 4 beside the float32 model's, 5 full-width bf16 training
+     steps in turns with 5 float32 steps after 2 warm-ups each (launches
+     per bf16 step K1-bf16 18, K3-bf16 18, K2 5), each kind's peak memory, a
+     step with the ``phoneme`` island (its layers in float32: K1 and K3 2
+     a step), one step's losses on the card and on the CPU (within
+     TOL_BF16_LOSS_REL), and ``run synth-data``, ``binarize`` (with voice
+     embeddings), ``train`` 2 steps, resumed to 4, and ``test`` under
+     ``build/bf16/``;
+ 12. the training switches (phase ``train_variants``, full width, float32):
+     spectral norm, accumulation over 2, remat full and dots, voice
+     embeddings, 2 steps each on the card and on the CPU from the same
+     weights and draws (within TOL_VARIANT_REL), remat's gradients against
+     none's with dropout on, and the peak memory and step time of each
+     remat policy at B=4, T=640;
+ 13. a ``kernels`` JSON line (K1, K2, K3 and the bf16 builds of K1 and
+     K3), then the final ``{"ok": true, ...}`` line.
 
 It imports the port only (no JAX) and exits nonzero, printing no result,
 without a CUDA device or outside a checkout of the repository.
@@ -97,6 +121,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -106,6 +131,7 @@ ROOT = Path(__file__).resolve().parent
 F32_PEAK = 67e12      # H100 SXM float32 FLOP/s outside the tensor cores
 TC_F32_PEAK = 495e12 / 3  # 3xTF32 on the tensor cores: three TF32 passes
 HBM_RATE = 3.35e12    # H100 SXM device-memory bytes/s
+BF16_PEAK = 989e12    # H100 SXM bf16 dense tensor-core FLOP/s
 TOL_KERNEL = 1e-4
 # card vs CPU waveform: max abs err <= TOL_CPU_REL * max|wav|; the random
 # weights give a waveform of ~1e-2 amplitude, so an absolute limit would
@@ -131,6 +157,12 @@ KEEP_TOL = 0.005         # K1 dropout 0.1: keep rate within 0.9 +- this
 # by d of itself, so below 1 the max is held to 1e-5 absolute; the sum is
 # at least 1 (the max's own term)
 TOL_STATS_REL = 1e-5
+# K1/K3-bf16 against their plain versions: a bf16 result within one bf16
+# ulp of the tensor's peak (2^-7 relative; the kernel and the plain version
+# may round a value on either side of a tie), the float32 emb gradients
+# within 1e-3 of their peaks
+TOL_BF16_REL = 2.0 ** -7
+TOL_BF16_EMB = 1e-3
 VOCABS = (60, 117, 98)   # as bench.py's synthesis benchmark
 
 
@@ -300,12 +332,13 @@ def sdpa_partial_ms(torch, ra, q, k, v, ek, lens, window, scale) -> float:
                   for a in (q, k, v))
     idx = torch.arange(t, device=q.device)
     off = idx[None, :] - idx[:, None]
-    rel = (qh @ ek.t()) * scale
+    rel = (qh.float() @ ek.t()) * scale
     bias = torch.gather(rel, -1, (off + window).clamp(0, 2 * window).expand(
         b, c // dk, t, t)) * (off.abs() <= window)
     valid = idx[None, :] < lens[:, None].long()
     valid = valid[:, None, :, None] & valid[:, None, None, :]
-    mask = (bias + torch.where(valid, 0.0, ra.MASK_VAL)).contiguous()
+    mask = (bias + torch.where(valid, 0.0, ra.MASK_VAL)).to(
+        q.dtype).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return device_ms(torch, lambda: sdpa(qh, kh, vh, attn_mask=mask,
                                          scale=scale))
@@ -465,6 +498,144 @@ def check_rel_attention_bwd(torch, ra, dev):
     return rows
 
 
+def bf16_err(got, ref) -> float:
+    """Largest error of a bf16 result against its plain version, as a share
+    of the plain tensor's peak."""
+    return float((got.float() - ref.float()).abs().max()
+                 / ref.float().abs().max().clamp(min=1e-30))
+
+
+def bounds_bf16(flops: float, nbytes: float) -> dict:
+    """The least time for ``flops`` at the bf16 dense tensor-core rate and
+    ``nbytes`` at the memory rate, and what bounds it."""
+    t_ops, t_bytes = flops / BF16_PEAK, nbytes / HBM_RATE
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+BF16_CASES = (("frame", 640, [640, 600, 517, 333]),
+              ("token", 192, [192, 180, 151, 97]),
+              ("ragged", 637, [637, 600, 64, 1]))
+
+
+def check_k1_bf16(torch, ra, dev):
+    """K1's bf16 build against the plain version on the same bf16 q, k, v
+    (the plain version rounds P and the output where the TPU kernel does),
+    at the frame, token and ragged shapes, dropout off and 0.1; beside it
+    the float32 K1 on the same values and ``scaled_dot_product_attention``
+    in bf16 (the yardstick without the band term)."""
+    gen = torch.Generator(device="cpu").manual_seed(21)
+    c, heads, window = 192, 2, 4
+    dk = c // heads
+    seed = torch.tensor([4242], dtype=torch.int32, device=dev)
+    rows = []
+    for label, t, lengths in BF16_CASES:
+        q, k, v, ek, ev = attention_inputs(torch, gen, t, dev)
+        q, k, v = (a.bfloat16() for a in (q, k, v))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        for rate in (0.0, 0.1):
+            kw = dict(window=window, scale=dk ** -0.5, seed=seed, rate=rate)
+            out, stats = ra.rel_attention_fwd(q, k, v, ek, ev, lens, **kw)
+            ref, ref_stats = ra.rel_attention_plain(q, k, v, ek, ev, lens,
+                                                    **kw, with_stats=True)
+            torch.cuda.synchronize()
+            check(out.dtype == torch.bfloat16, "K1-bf16: output not bf16")
+            err, serr = bf16_err(out, ref), stats_err(stats, ref_stats)
+            check(bool(torch.isfinite(out.float()).all()),
+                  f"K1-bf16 {label} rate {rate}: non-finite")
+            check(err <= TOL_BF16_REL, f"K1-bf16 {label} rate {rate}: err "
+                  f"{err} of the peak > {TOL_BF16_REL}")
+            check(serr <= TOL_STATS_REL, f"K1-bf16 {label} rate {rate}: "
+                  f"stats err {serr} > {TOL_STATS_REL}")
+            row = {"shape": f"[4, {t}, {c}] {label}", "lengths": lengths,
+                   "dropout": rate, "err_of_peak": err, "stats_err": serr,
+                   "max_abs_err": float((out.float() - ref.float()).abs()
+                                        .max())}
+            if rate == 0.0:
+                q32, k32, v32 = (a.float() for a in (q, k, v))
+                flops, _ = k1_work(lengths, t, c, heads, window)
+                _, nbytes32 = k1_work(lengths, t, c, heads, window)
+                row.update(
+                    **timings(torch,
+                              lambda: ra.rel_attention_fwd(q, k, v, ek, ev,
+                                                           lens, **kw),
+                              lambda: ra.rel_attention_plain(
+                                  q, k, v, ek, ev, lens, **kw)),
+                    f32_ms=device_ms(torch, lambda: ra.rel_attention_fwd(
+                        q32, k32, v32, ek, ev, lens, **kw)),
+                    sdpa_bf16_ms=sdpa_partial_ms(torch, ra, q, k, v, ek,
+                                                 lens, window, dk ** -0.5),
+                    **bounds_bf16(flops, nbytes32 / 2),
+                    gflop=flops / 1e9, mbytes=nbytes32 / 2e6)
+            phase("k1_bf16", **row)
+            rows.append(row)
+    return rows
+
+
+def check_k3_bf16(torch, ra, dev):
+    """K3's bf16 build against the plain bf16 backward (autograd of the
+    plain version, the rounding of P passing the gradient through) at the
+    frame, token and ragged shapes, dropout off and 0.1, with a random bf16
+    g; dq, dk, dv (bf16) within TOL_BF16_REL of their peaks, the emb
+    gradients (float32) within TOL_BF16_EMB; a second run gives the same
+    bits; beside it the float32 K3 on the same values."""
+    gen = torch.Generator(device="cpu").manual_seed(23)
+    c, heads, window = 192, 2, 4
+    dk = c // heads
+    seed = torch.tensor([2025], dtype=torch.int32, device=dev)
+    names = ("dq", "dk", "dv", "d_emb_rel_k", "d_emb_rel_v")
+    rows = []
+    for label, t, lengths in BF16_CASES:
+        q, k, v, ek, ev = attention_inputs(torch, gen, t, dev)
+        q, k, v = (a.bfloat16() for a in (q, k, v))
+        g = torch.randn(4, t, c, generator=gen).to(dev).bfloat16()
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        for rate in (0.0, 0.1):
+            kw = dict(window=window, scale=dk ** -0.5, seed=seed, rate=rate)
+            out, stats = ra.rel_attention_fwd(q, k, v, ek, ev, lens, **kw)
+            got = ra.rel_attention_bwd(q, k, v, ek, ev, lens, g, out, stats,
+                                       **kw)
+            again = ra.rel_attention_bwd(q, k, v, ek, ev, lens, g, out,
+                                         stats, **kw)
+            ref = ra.rel_attention_bwd_plain(q, k, v, ek, ev, lens, g, **kw)
+            torch.cuda.synchronize()
+            errs = {n: bf16_err(a, r) for n, a, r in zip(names, got, ref)}
+            for i, (n, a, b) in enumerate(zip(names, got, again)):
+                check(a.dtype == (torch.bfloat16 if i < 3 else torch.float32),
+                      f"K3-bf16: {n} is {a.dtype}")
+                check(bool(torch.isfinite(a.float()).all()),
+                      f"K3-bf16 {label} rate {rate}: {n} non-finite")
+                tol = TOL_BF16_REL if i < 3 else TOL_BF16_EMB
+                check(errs[n] <= tol, f"K3-bf16 {label} rate {rate}: {n} "
+                      f"err {errs[n]} of the peak > {tol}")
+                check(torch.equal(a, b), f"K3-bf16 {label} rate {rate}: {n} "
+                      f"differs between two runs on the same inputs")
+            row = {"shape": f"[4, {t}, {c}] {label}", "lengths": lengths,
+                   "dropout": rate, "errs_of_peak": errs,
+                   "bit_identical_rerun": True,
+                   "max_abs_err": max(float((a.float() - r.float()).abs()
+                                            .max())
+                                      for a, r in zip(got, ref))}
+            if rate == 0.0:
+                q32, k32, v32, g32 = (a.float() for a in (q, k, v, g))
+                o32, s32 = ra.rel_attention_fwd(q32, k32, v32, ek, ev, lens,
+                                                **kw)
+                flops, nbytes32 = k3_work(lengths, t, c, heads, window)
+                row.update(
+                    **timings(torch,
+                              lambda: ra.rel_attention_bwd(
+                                  q, k, v, ek, ev, lens, g, out, stats, **kw),
+                              lambda: ra.rel_attention_bwd_plain(
+                                  q, k, v, ek, ev, lens, g, **kw)),
+                    f32_ms=device_ms(torch, lambda: ra.rel_attention_bwd(
+                        q32, k32, v32, ek, ev, lens, g32, o32, s32, **kw)),
+                    **bounds_bf16(flops, nbytes32 / 2),
+                    gflop=flops / 1e9, mbytes=nbytes32 / 2e6)
+            phase("k3_bf16", **row)
+            rows.append(row)
+    return rows
+
+
 def stack_inputs(torch, gen, dev, lengths, t, c, n_layers, k):
     def u(*shape, bound):
         return (torch.rand(*shape, generator=gen) * 2 - 1).mul(bound).to(dev)
@@ -583,17 +754,17 @@ def training(torch, ra, ws, dev, profile: bool):
         check(changed[name] > 0.9, f"training: only {changed[name]} of the "
               f"{name} parameter tensors changed")
     med = sorted(step_ms)[steps // 2]
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     phase("training", batch=b, frames=t, tokens=192, steps=steps,
           launches=counts,
           launches_per_step={k: v / steps for k, v in counts.items()},
           median_step_ms=med, step_ms=step_ms,
-          mel_frames_per_s=b * t / (med / 1e3),
-          peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+          mel_frames_per_s=b * t / (med / 1e3), peak_mem_gib=peak,
           params_changed=changed,
           last_metrics={k: float(v) for k, v in metrics[-1].items()})
     if profile:
         profile_run(torch, lambda: train_step(state, batch), "train_step")
-    return counts, med
+    return counts, med, peak
 
 
 def train_card_vs_cpu(torch, dev):
@@ -1516,6 +1687,405 @@ def pipeline(torch, ra, ws, dev, root: Path) -> dict:
     return train_counts
 
 
+# card vs CPU, one bf16 training step (soak_r5, B=1, T=160, dropout 0): the
+# card's bf16 convolutions and products (cuDNN, cuBLAS, K1/K3-bf16) and the
+# CPU's round at other points and sum in other orders, so each loss is held
+# to a bf16-sized share of itself (bf16 keeps 8 bits: 2^-8 = 3.9e-3 per
+# rounding), not to the float32 step's 1e-4
+TOL_BF16_LOSS_REL = 2e-2
+# card vs CPU, two float32 steps of each training variant (B=1, T=160,
+# dropout 0): the second step starts from parameters that went through
+# Adam's normalised first update, where a gradient within rounding of zero
+# may take the other sign on one device
+TOL_VARIANT_REL = 1e-3
+# remat against none on the card, one step's gradients with dropout on:
+# the same draws, recomputed.  Not bit for bit: cuDNN's weight-gradient
+# reductions do not repeat exactly (on an H100 the WaveNets' weight_g read
+# 1.5e-5 of their peak between two runs of none; the phase prints that
+# rerun beside remat's); a dropout mask drawn anew moves gradients by O(1)
+# of their peak
+TOL_REMAT_REL = 1e-4
+BF16_TRAIN = ("max_updates={n},val_check_interval=2,valid_infer_interval=2,"
+              "num_valid_plots=2,eval_max_batches=2,test_after_train={test}")
+
+
+def bf16_counts(ra, ws) -> dict:
+    return {"rel_attention_fwd": ra.launches,
+            "rel_attention_bwd": ra.bwd_launches,
+            "rel_attention_bf16_fwd": ra.launches_bf16,
+            "rel_attention_bf16_bwd": ra.bwd_launches_bf16,
+            "wavenet_stack_fwd": ws.launches}
+
+
+def zero_counts(ra, ws) -> None:
+    ra.launches = ra.bwd_launches = ws.launches = 0
+    ra.launches_bf16 = ra.bwd_launches_bf16 = 0
+
+
+def bf16_phase(torch, ra, ws, dev, root: Path, f32_step_ms: float,
+               f32_peak_gib: float, profile: bool) -> dict:
+    """The ``soak_r5`` recipe (bf16 compute) at full width, all on the card:
+    a synthesis group of 4 beside the float32 model's (K1-bf16 16, K2 4 a
+    group), 5 training steps in turns with 5 float32 steps (K1-bf16 18,
+    K3-bf16 18, K2 5 a bf16 step; the float32 K1/K3 only in the float32
+    steps), each kind's peak memory alone, one step
+    with ``bf16_f32_islands=("phoneme",)`` (the phoneme head's layers in
+    float32: K1 and K3 2 a step, their bf16 builds 16), one step's losses
+    on the card and on the CPU, then ``run synth-data``/``binarize`` (with
+    voice embeddings, for ``train_variants``), ``run train --config
+    soak_r5`` for 2 steps, resumed to 4, and ``run test`` on its step-4
+    checkpoint.  Returns the bf16 builds' launches of the timed training
+    steps (5 of each kind, in turns); the corpus stays in ``root`` for
+    ``train_variants``."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from visinger_tpu_torch import run
+    from visinger_tpu_torch.config import soak_r5, visinger_csd
+    from visinger_tpu_torch.data.synthetic import synthetic_batch
+    from visinger_tpu_torch.infer.infer import TorchSynthesizer
+    from visinger_tpu_torch.models.factory import build_models
+    from visinger_tpu_torch.training.train_state import create_train_state
+    from visinger_tpu_torch.training.train_step import make_train_step
+
+    cfg = soak_r5()
+    n_prior = cfg.enc_layers + cfg.pitch_predictor_layers \
+        + cfg.frame_prior_layers
+    n_attn = n_prior + cfg.phoneme_predictor_layers
+
+    # synthesis: one group of 4, bf16 and float32 in turns
+    batch = synthetic_batch(4, 192, 640, *VOCABS, hop_size=cfg.hop_size,
+                            seed=0)
+    requests = requests_from(batch, 4)
+    synths = {"bf16": TorchSynthesizer(cfg, flow_model(torch, cfg, *VOCABS),
+                                       device=dev),
+              "f32": TorchSynthesizer(visinger_csd(), flow_model(
+                  torch, visinger_csd(), *VOCABS), device=dev)}
+    for sy in synths.values():
+        sy.synthesize_batch(requests, seed=0)             # warm-up
+    torch.cuda.synchronize()
+    zero_counts(ra, ws)
+    res = synths["bf16"].synthesize_batch(requests, seed=0)
+    synth_counts = bf16_counts(ra, ws)
+    want = {"rel_attention_fwd": 0, "rel_attention_bwd": 0,
+            "rel_attention_bf16_fwd": n_prior, "rel_attention_bf16_bwd": 0,
+            "wavenet_stack_fwd": cfg.flow_n_flows}
+    check(synth_counts == want, f"bf16 synthesis launches {synth_counts} "
+          f"!= {want}")
+    for wav, t_valid in zip(res.wavs, batch["mel_lengths"]):
+        check(wav.shape == (t_valid * cfg.hop_size,)
+              and bool(np.isfinite(wav).all()) and abs(wav).max() <= 1.0
+              and float(abs(wav).max()) > 0,
+              f"bf16 synthesis: wav {wav.shape} for {t_valid} frames, "
+              f"peak {abs(wav).max()}")
+    group_s = {"f32": [], "bf16": []}
+    for name in ("f32", "bf16", "bf16", "f32", "f32", "bf16"):
+        group_s[name] += synths[name].synthesize_batch(
+            requests, seed=0).group_seconds
+    audio_s = float(batch["mel_lengths"].sum()) * cfg.hop_size \
+        / cfg.sample_rate
+    synth_row = {k: {"group_ms": [x * 1e3 for x in v],
+                     "audio_s_per_s": audio_s / (sorted(v)[1])}
+                 for k, v in group_s.items()}
+    del synths
+
+    # training at B=4, T=640: the bf16 and the float32 step, each with its
+    # own models, 2 warm-ups, one step alone for its peak memory (above
+    # what was allocated before its models were built), then 5 timed steps
+    # of each in turns (bf16, f32, f32, bf16, ...)
+    tb = training_batch(cfg, cfg.max_sentences, 192, 640, seed=0)
+    runs, peak = {}, {}
+    for name, rcfg in (("bf16", cfg), ("f32", visinger_csd())):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        model, disc = build_models(rcfg, *VOCABS, device=dev, seed=0)
+        runs[name] = [create_train_state(model, disc, seed=0),
+                      make_train_step(rcfg, model, disc, device=dev)]
+        for i in range(3):
+            if i == 2:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+            runs[name][0], _ = runs[name][1](runs[name][0], tb)
+        torch.cuda.synchronize()
+        peak[name] = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+    zero_counts(ra, ws)
+    steps, step_ms, metrics = 5, {"bf16": [], "f32": []}, []
+    for i in range(2 * steps):
+        name = ("bf16", "f32")[(i + i // 2) % 2]
+        t0 = time.perf_counter()
+        runs[name][0], m = runs[name][1](runs[name][0], tb)
+        torch.cuda.synchronize()
+        step_ms[name].append((time.perf_counter() - t0) * 1e3)
+        if name == "bf16":
+            metrics.append(m)
+    train_counts = bf16_counts(ra, ws)
+    want = {"rel_attention_fwd": n_attn * steps,
+            "rel_attention_bwd": n_attn * steps,
+            "rel_attention_bf16_fwd": n_attn * steps,
+            "rel_attention_bf16_bwd": n_attn * steps,
+            "wavenet_stack_fwd": 2 * (1 + cfg.flow_n_flows) * steps}
+    check(train_counts == want, f"bf16 and f32 training launches "
+          f"{train_counts} != {want}")
+    for m in metrics:
+        for k, v in m.items():
+            check(bool(torch.isfinite(v)), f"bf16 training: {k} = {v}")
+    med = {k: sorted(v)[steps // 2] for k, v in step_ms.items()}
+    if profile:
+        state, train_step = runs["bf16"]
+        profile_run(torch, lambda: train_step(state, tb), "train_step_bf16")
+    del runs
+
+    # one step with the phoneme head in float32
+    icfg = cfg.replace(bf16_f32_islands=("phoneme",))
+    model, disc = build_models(icfg, *VOCABS, device=dev, seed=0)
+    seen = {}
+
+    def record(name):
+        def hook(_m, _i, out):
+            seen.setdefault(name, str(out.dtype))
+        return hook
+
+    for name, mod in (("phoneme", model.phoneme_predictor.encoder.ffn_0
+                       .conv_2),
+                      ("frame_prior", model.frame_prior.encoder.ffn_0
+                       .conv_2)):
+        mod.register_forward_hook(record(name))
+    zero_counts(ra, ws)
+    make_train_step(icfg, model, disc, device=dev)(
+        create_train_state(model, disc, seed=0), tb)
+    island_counts = bf16_counts(ra, ws)
+    n_ph = cfg.phoneme_predictor_layers
+    want = {"rel_attention_fwd": n_ph, "rel_attention_bwd": n_ph,
+            "rel_attention_bf16_fwd": n_prior,
+            "rel_attention_bf16_bwd": n_prior,
+            "wavenet_stack_fwd": 1 + cfg.flow_n_flows}
+    check(island_counts == want, f"island step launches {island_counts} "
+          f"!= {want}")
+    check(seen == {"phoneme": "torch.float32",
+                   "frame_prior": "torch.bfloat16"},
+          f"island step activations {seen}")
+    del model, disc
+
+    # one step's losses on the card and on the CPU: same weights and draws
+    ccfg = cfg.replace(p_dropout=0.0)
+    t = 160
+    cb = training_batch(ccfg, 1, 48, t, seed=4)
+    eps_q = torch.randn(1, t, cfg.hidden_size,
+                        generator=torch.Generator().manual_seed(6))
+    ids = torch.tensor([57])
+    losses = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        model, disc = build_models(ccfg, *VOCABS, device=d, seed=0)
+        st = create_train_state(model, disc, seed=0)
+        st.step = 1
+        _, ls, _ = make_train_step(ccfg, model, disc, device=d).generator_loss(
+            st, cb, eps_q=eps_q.to(d), ids_slice=ids.to(d))
+        losses[name] = {k: float(v.detach()) for k, v in ls.items()}
+        del model, disc, st
+    loss_err = {k: abs(losses["cuda"][k] - v) / max(abs(v), 1e-12)
+                for k, v in losses["cpu"].items()}
+    check(all(e <= TOL_BF16_LOSS_REL for e in loss_err.values()),
+          f"bf16 card vs CPU losses: {loss_err} > {TOL_BF16_LOSS_REL}")
+
+    # the command line: synth-data, binarize (voice embeddings on), train 2
+    # steps, resume to 4, test from the step-4 checkpoint
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        run.main(["synth-data", "--config", "soak_r5"])
+        out, _ = captured(lambda: run.main(
+            ["binarize", "--config", "soak_r5", "-hp",
+             "binarization_args.with_spk_embed=True"]))
+        check(out["counts"] == PIPELINE_SPLITS,
+              f"bf16: binarized {out['counts']} != {PIPELINE_SPLITS}")
+        zero_counts(ra, ws)
+        runs = []
+        for n, test in ((2, False), (4, True)):
+            t0 = time.perf_counter()
+            st, text = captured(lambda: run.main(
+                ["train", "--config", "soak_r5", "--device", str(dev), "-hp",
+                 BF16_TRAIN.format(n=n, test=test)]))
+            runs.append({"steps": st.step, "s": time.perf_counter() - t0})
+            check(st.step == n, f"bf16 run train ended at {st.step}")
+            del st
+        check("resumed from step 2" in text,
+              "bf16 run train: the second run did not resume")
+        cli_counts = bf16_counts(ra, ws)
+        # 4 steps, and each eval batch a train step on a copy
+        # (deterministic_eval false): all on the bf16 builds
+        check(cli_counts["rel_attention_fwd"] == 0
+              and cli_counts["rel_attention_bwd"] == 0
+              and cli_counts["rel_attention_bf16_bwd"] >= n_attn * 4,
+              f"bf16 run train launches {cli_counts}")
+        work = Path(cfg.work_dir)
+        results, _ = captured(lambda: run.main(
+            ["test", "--config", "soak_r5", "--device", str(dev)]))
+        check(len(results) == PIPELINE_SPLITS["test"] and all(
+            np.isfinite(r[k]) for r in results
+            for k in ("mcd", "mel_l1", "vuv_error")),
+            f"bf16 run test results {results}")
+        ckpts = sorted(p.name for p in work.glob("model_ckpt_steps_*.pt"))
+        check("model_ckpt_steps_4.pt" in ckpts, f"bf16 checkpoints {ckpts}")
+        after = json.loads((work / "test_after_train" / "results.json"
+                            ).read_text())
+        check(len(after) == PIPELINE_SPLITS["test"],
+              "bf16 test_after_train results")
+    finally:
+        os.chdir(cwd)
+    phase("bf16", recipe="soak_r5", synthesis=synth_row,
+          synthesis_launches_per_group=synth_counts,
+          train_launches_bf16_and_f32=train_counts,
+          median_step_ms=med["bf16"], step_ms=step_ms["bf16"],
+          f32_median_step_ms=med["f32"], f32_step_ms=step_ms["f32"],
+          f32_training_phase_ms=f32_step_ms,
+          mel_frames_per_s=cfg.max_sentences * 640 / (med["bf16"] / 1e3),
+          f32_mel_frames_per_s=cfg.max_sentences * 640 / (med["f32"] / 1e3),
+          peak_mem_gib=peak["bf16"], f32_peak_mem_gib=peak["f32"],
+          f32_training_phase_peak_gib=f32_peak_gib,
+          last_metrics={k: float(v) for k, v in metrics[-1].items()},
+          island_launches=island_counts, island_activations=seen,
+          card_vs_cpu_losses=losses["cpu"], card_vs_cpu_rel_err=loss_err,
+          card_vs_cpu_tol=TOL_BF16_LOSS_REL, cli_runs=runs,
+          cli_launches=cli_counts, checkpoints=ckpts,
+          test_mcd=[r["mcd"] for r in results],
+          test_rtf=[r["rtf"] for r in results])
+    return train_counts
+
+
+VARIANTS = {"spectral_norm": dict(use_spectral_norm=True),
+            "accum2": dict(accumulate_grad_batches=2),
+            "remat_full": dict(remat_policy="full"),
+            "remat_dots": dict(remat_policy="dots"),
+            "spk_embed": dict(use_spk_embed=True)}
+
+
+def train_variants(torch, ra, ws, dev, data_dir: Path) -> dict:
+    """The training switches at full width, float32: 2 steps of each on the
+    card and on the CPU from the same weights and draws (B=1, a record of
+    the corpus ``bf16_phase`` binarized with voice embeddings, dropout 0),
+    every metric within TOL_VARIANT_REL; the two remat policies' generator
+    gradients against none's on the card with dropout on; and the peak
+    memory of one full-size step (B=4, T=640) under each remat policy."""
+    import numpy as np
+
+    from visinger_tpu_torch.config import visinger_csd
+    from visinger_tpu_torch.data.dataset import build_dataset
+    from visinger_tpu_torch.models.factory import build_models
+    from visinger_tpu_torch.training.train_state import create_train_state
+    from visinger_tpu_torch.training.train_step import (_grads,
+                                                        make_train_step,
+                                                        remat)
+
+    base = visinger_csd().replace(binary_data_dir=str(data_dir))
+    vocabs = [len(json.loads((data_dir / f"{n}.json").read_text()))
+              for n in ("phone_set", "pitch_map", "dur_map")]
+    # the shortest train record: the CPU runs each variant's steps too
+    rec = min(build_dataset(base, base.train_set_name).batches(
+        max_sentences=1, shuffle=False, pad_to_max_sentences=False),
+        key=lambda r: int(r["mel_lengths"][0]))
+    check(rec["spk_embed"].shape == (1, 256), "train_variants: the corpus "
+          "has no voice embeddings")
+    t = int(rec["mel2ph"].shape[1])
+    eps = [torch.randn(1, t, base.hidden_size,
+                       generator=torch.Generator().manual_seed(40 + i))
+           for i in range(2)]
+    ids = [torch.tensor([int(rec["mel_lengths"][0]) // 3 + i])
+           for i in range(2)]
+    rows = {}
+    for name, over in VARIANTS.items():
+        cfg = base.replace(p_dropout=0.0, **over)
+        got, counts = {}, None
+        for dname, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            model, disc = build_models(cfg, *vocabs, device=d, seed=0)
+            st = create_train_state(model, disc, seed=0)
+            step = make_train_step(cfg, model, disc, device=d)
+            zero_counts(ra, ws)
+            ms = []
+            for i in range(2):
+                st, m = step(st, rec, eps_q=eps[i].to(d),
+                             ids_slice=ids[i].to(d))
+                ms.append({k: float(v) for k, v in m.items()})
+            if dname == "cuda":
+                counts = bf16_counts(ra, ws)
+            accum = cfg.accumulate_grad_batches
+            check(st.opt_state_g.count == 2 // accum,
+                  f"{name}: {st.opt_state_g.count} optimizer updates")
+            got[dname] = ms
+            del model, disc, st, step
+        errs = [{k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in b}
+                for a, b in zip(got["cuda"], got["cpu"])]
+        worst = max(max(e.values()) for e in errs)
+        check(all(np.isfinite(v) for m in got["cuda"] for v in m.values()),
+              f"{name}: non-finite metrics")
+        check(worst <= TOL_VARIANT_REL, f"{name}: card vs CPU metrics "
+              f"{errs} > {TOL_VARIANT_REL}")
+        check(counts["rel_attention_fwd"] > 0
+              and counts["rel_attention_bwd"] > 0
+              and counts["wavenet_stack_fwd"] > 0,
+              f"{name}: kernel launches {counts}")
+        rows[name] = {"max_rel_err": worst, "launches_2_steps": counts,
+                      "losses": got["cuda"][-1]}
+
+    # remat on the card with dropout on: the same gradients as none (the
+    # attention key bias, zero in exact arithmetic, against the largest
+    # gradient, as in train_card_vs_cpu)
+    remat_err, remat_worst, grads = {}, {}, {}
+    for pol in ("none", "none_rerun", "full", "dots"):
+        cfg = base.replace(remat_policy=pol.split("_")[0])
+        model, disc = build_models(cfg, *vocabs, device=dev, seed=0)
+        names = [n for n, _ in model.named_parameters()]
+        st = create_train_state(model, disc, seed=0)
+        step = make_train_step(cfg, model, disc, device=dev)
+        total, _, _ = remat(cfg.remat_policy,
+                            lambda: step.generator_loss(st, rec),
+                            st.generator)
+        grads[pol] = _grads(total, list(model.parameters()))
+        del model, disc, st, step
+    gmax = max(float(r.abs().max()) for r in grads["none"])
+    for pol in ("none_rerun", "full", "dots"):
+        errs = {}
+        for name, g, r in zip(names, grads[pol], grads["none"]):
+            peak = gmax * TOL_ZERO_GRAD / TOL_REMAT_REL \
+                if name.endswith(ZERO_GRAD) else float(r.abs().max())
+            errs[name] = float((g - r).abs().max()) / max(peak, 1e-30)
+        worst = sorted(errs, key=errs.get, reverse=True)[:3]
+        remat_err[pol] = errs[worst[0]]
+        remat_worst[pol] = {n: errs[n] for n in worst}
+        check(remat_err[pol] <= TOL_REMAT_REL, f"remat {pol}: gradients "
+              f"from none's, of their peaks: {remat_worst[pol]}")
+    del grads
+
+    # peak memory of one full-size step under each remat policy
+    tb = training_batch(base, base.max_sentences, 192, 640, seed=0)
+    peak = {}
+    for pol in ("none", "full", "dots"):
+        cfg = base.replace(remat_policy=pol)
+        model, disc = build_models(cfg, *VOCABS, device=dev, seed=0)
+        st = create_train_state(model, disc, seed=0)
+        step = make_train_step(cfg, model, disc, device=dev)
+        st, _ = step(st, tb)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        st, m = step(st, tb)
+        torch.cuda.synchronize()
+        peak[pol] = {"peak_mem_gib": torch.cuda.max_memory_allocated(dev)
+                     / 2 ** 30,
+                     "step_ms": (time.perf_counter() - t0) * 1e3}
+        check(all(bool(torch.isfinite(v)) for v in m.values()),
+              f"remat {pol}: non-finite metrics")
+        del model, disc, st, step
+    phase("train_variants", frames=t, variants=rows, tol=TOL_VARIANT_REL,
+          remat_grad_err_of_peak=remat_err, remat_worst=remat_worst,
+          remat_tol=TOL_REMAT_REL,
+          remat_full_size=peak)
+    return rows
+
+
 def profile_run(torch, fn, tag: str):
     """Device time by kernel and the device idle share of one ``fn()``."""
     from torch.profiler import ProfilerActivity, profile
@@ -1565,7 +2135,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from visinger_tpu_torch.config import visinger_csd
+    from visinger_tpu_torch.config import soak_r5, visinger_csd
     from visinger_tpu_torch.infer.streaming import halo_frames
     from visinger_tpu_torch.ops import cuda_build
     from visinger_tpu_torch.ops import rel_attention as ra
@@ -1593,11 +2163,15 @@ def main() -> int:
     # at the model's shapes: dk = 96, window 4; C = 192, K = 5
     phase("kernel_resources",
           rel_attention=cuda_build.kernel_info("rel_attention", 96, 4),
+          rel_attention_bf16=cuda_build.kernel_info("rel_attention_bf16", 96,
+                                                    4),
           wavenet_stack=cuda_build.kernel_info("wavenet_stack", 192, 5))
 
     k1_rows = check_rel_attention(torch, ra, dev)
     k1_drop = check_k1_dropout(torch, ra, dev)
     k3_rows = check_rel_attention_bwd(torch, ra, dev)
+    k1b_rows = check_k1_bf16(torch, ra, dev)
+    k3b_rows = check_k3_bf16(torch, ra, dev)
     k2_row = check_wavenet_stack(torch, ws, dev, 4, "wavenet_stack")
     k2_post = check_wavenet_stack(torch, ws, dev, 16, "posterior",
                                   grads=True)
@@ -1607,7 +2181,8 @@ def main() -> int:
         visinger_csd())
     k2_window = check_wavenet_stack(torch, ws, dev, 4, "stream_window",
                                     t=window, lengths=(window - 30,))
-    train_counts, bare_ms = training(torch, ra, ws, dev, args.profile)
+    train_counts, bare_ms, train_peak = training(torch, ra, ws, dev,
+                                                 args.profile)
     train_card_vs_cpu(torch, dev)
     synth_counts = synthesis(torch, ra, ws, dev, args.profile)
     scores_dir = ROOT / "build" / "midi_scores"
@@ -1620,6 +2195,11 @@ def main() -> int:
                              bare_ms)
     pipeline_counts = pipeline(torch, ra, ws, dev,
                                ROOT / "build" / "pipeline")
+    bf16_root = ROOT / "build" / "bf16"
+    bf16_train = bf16_phase(torch, ra, ws, dev, bf16_root, bare_ms,
+                            train_peak, args.profile)
+    train_variants(torch, ra, ws, dev, bf16_root / soak_r5().binary_data_dir)
+    shutil.rmtree(bf16_root, ignore_errors=True)
 
     k1 = k1_rows[0]  # the frame-rate shape: 12 of the 18 layers per step
     k1_token = k1_rows[1]
@@ -1689,6 +2269,30 @@ def main() -> int:
          "window_bound_ms": k2_window["bound_ms"],
          "window_bound_tc_ms": k2_window["bound_tc_ms"]},
     ]
+    k1b = next(r for r in k1b_rows if r["shape"].endswith("frame"))
+    k3b = next(r for r in k3b_rows if r["shape"].endswith("frame"))
+    for name, rows, row, tpu_line, n in (
+            ("rel_attention_bf16_fwd", k1b_rows, k1b, 291,
+             bf16_train["rel_attention_bf16_fwd"]),
+            ("rel_attention_bf16_bwd", k3b_rows, k3b, 250,
+             bf16_train["rel_attention_bf16_bwd"])):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "visinger_tpu_torch/csrc/rel_attention_bf16.cu",
+            "replaces": f"visinger_tpu/ops/pallas/attention_kernel.py:"
+                        f"{tpu_line}",
+            "launches": n,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "err_of_peak": max(r.get("err_of_peak", 0.0) for r in rows)
+            if name.endswith("fwd") else max(
+                max(r["errs_of_peak"].values()) for r in rows),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "call_ms": row["call_ms"], "plain_call_ms": row["plain_call_ms"],
+            "f32_ms": row["f32_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+            "sdpa_bf16_ms": row.get("sdpa_bf16_ms"),
+            "shape": f"{row['shape']} bf16"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

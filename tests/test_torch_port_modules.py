@@ -245,14 +245,15 @@ _JAX_CODE_DEFAULTS = {"slice_ref_padded": False, "disc_s_base": 16,
                       "test_after_train": False}
 
 
-@pytest.mark.parametrize("which", ["visinger_csd", "tiny", "tpu_run"])
+@pytest.mark.parametrize("which", ["visinger_csd", "tiny", "tpu_run",
+                                   "soak_r5"])
 def test_recipe_matches_yaml(which):
     if which == "tiny":
         port, ref = port_config.tiny_config(), jax_tiny_config()
-    elif which == "tpu_run":
-        port = port_config.tpu_run()
+    elif which in ("tpu_run", "soak_r5"):
+        port = getattr(port_config, which)()
         ref = load_config(str(Path(__file__).resolve().parents[1]
-                              / "configs" / "tpu_run.yaml"))
+                              / "configs" / f"{which}.yaml"))
     else:
         port, ref = port_config.visinger_csd(), load_config(name="visinger_csd")
     for f in dataclasses.fields(port):
@@ -350,7 +351,8 @@ def test_converter_raises_on_unknown_leaves():
     with pytest.raises(ValueError, match="layout"):
         params_from_jax({"a": {"kernel": np.zeros((1, 2, 3, 4))}})
     # the period discriminator's (kh, 1) conv: [kh, 1, in, out] ->
-    # [out, in, kh, 1], weight-normed; without its g it has no rule
+    # [out, in, kh, 1], weight-normed; without its g it is the
+    # spectral-norm layout, a plain weight with the same permutation
     conv2d = {"kernel": np.arange(5 * 2 * 3, dtype=np.float32).reshape(
         5, 1, 2, 3), "g": np.ones(3, np.float32),
         "bias": np.zeros(3, np.float32)}
@@ -358,9 +360,11 @@ def test_converter_raises_on_unknown_leaves():
     assert sd["disc_p2.conv_0.weight_v"].shape == (3, 2, 5, 1)
     assert float(sd["disc_p2.conv_0.weight_v"][2, 1, 4, 0]) == \
         float(conv2d["kernel"][4, 0, 1, 2])
-    with pytest.raises(ValueError, match="layout"):
-        params_from_jax({"disc_p2": {"conv_0": {
-            k: v for k, v in conv2d.items() if k != "g"}}})
+    sd = params_from_jax({"disc_p2": {"conv_0": {
+        k: v for k, v in conv2d.items() if k != "g"}}})
+    assert set(sd) == {"disc_p2.conv_0.weight", "disc_p2.conv_0.bias"}
+    assert float(sd["disc_p2.conv_0.weight"][2, 1, 4, 0]) == \
+        float(conv2d["kernel"][4, 0, 1, 2])
     # every subtree converts, the training-only ones included
     assert set(params_from_jax({"posterior_encoder": {"pre": conv}})) == {
         "posterior_encoder.pre.weight", "posterior_encoder.pre.bias"}

@@ -218,12 +218,14 @@ def test_jax_init_params_tree_converts(slice_pair):
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import|from)\s+(jax|flax|yaml|visinger_tpu)\b|import_module",
+    r"^\s*(import|from)\s+(jax|flax|yaml|msgpack|visinger_tpu)\b"
+    r"|import_module",
     re.M)
 
 
 def test_port_imports_nothing_of_jax():
-    """The port and chip_smoke.py import no jax, flax, yaml or visinger_tpu:
+    """The port and chip_smoke.py import no jax, flax, yaml, msgpack or
+    visinger_tpu:
     a CPU synthesis, a CPU training step (``training/``, ``ops/stft.py``), a
     CPU ``VISingerInfer.synthesize`` of a written MIDI file (the front end,
     ``utils/``, ``data/``), a 2-step CPU ``Trainer.fit`` on a corpus

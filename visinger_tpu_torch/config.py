@@ -1,11 +1,11 @@
-"""The ``visinger_csd`` and ``tpu_run`` recipes as Python dataclasses (no
-YAML).
+"""The ``visinger_csd``, ``tpu_run`` and ``soak_r5`` recipes as Python
+dataclasses (no YAML).
 
 Holds the values the synthesis path, the MIDI front end, serving, the
 training step, the trainer, the data pipeline (synthetic corpus,
 preprocessing, binarization) and the render/test path read, copied from the
 JAX package's ``config/defaults/{visinger,csd,base}.yaml`` and
-``configs/tpu_run.yaml``; a CPU test holds every field of each recipe
+``configs/{tpu_run,soak_r5}.yaml``; a CPU test holds every field of each recipe
 against the YAML (for the keys the YAML leaves out, against the default the
 JAX code reads them with).  The TPU-only knobs
 (``attn_impl``, ``use_pallas``, ``decoder_time_fold``/``decoder_polyphase``,
@@ -18,9 +18,13 @@ the JAX package does, because the reproduced token positions
 conv adds its bias on padded frames.  So a score's audio depends on the score
 alone and equals the JAX package's for the same noise.
 
-Settings this port does not run yet raise ``NotImplementedError`` when a
-model, a server or a train step is built, and so do widths the CUDA kernels
-do not take when it is built for a CUDA device (``check_supported``).
+``compute_dtype`` "bfloat16" runs every layer in bf16 with float32
+parameters, LayerNorm statistics, softmax and distribution statistics, as
+the JAX package does; ``bf16_f32_islands`` names subsystems (``ISLANDS``)
+that stay float32.  Settings this port does not run yet (``sp_infer``)
+raise ``NotImplementedError`` when a model, a server or a train step is
+built, and so do widths the CUDA kernels do not take when it is built for a
+CUDA device (``check_supported``).
 """
 
 from __future__ import annotations
@@ -118,6 +122,7 @@ class Config:
     hop_size: int = 300
     sample_rate: int = 24000
     compute_dtype: str = "float32"
+    bf16_f32_islands: tuple = ()
     max_sentences: int = 4
     # training: slices, spectrograms, losses
     segment_size: int = 32
@@ -302,27 +307,41 @@ def parse_overrides(spec: str) -> dict:
     return out
 
 
+# the subsystems ``bf16_f32_islands`` may keep in float32 (the JAX
+# package's models/visinger.py and, for "disc", models/factory.py)
+ISLANDS = ("text_encoder", "pitch", "phoneme", "frame_prior", "posterior",
+           "flow", "decoder", "disc")
+COMPUTE_DTYPES = {"float32", "bfloat16"}
+REMAT_POLICIES = ("none", "full", "dots")
+
+
 def check_supported(cfg: Config, device=None) -> None:
     """Raise ``NotImplementedError`` for a setting this port does not run
     yet, rather than ignoring it; for a build on a CUDA ``device``, also for
     a width the CUDA kernels do not take (K1 and K3: a head width that is
     not a multiple of 8 or is above 128; K2: channels not a multiple of 32).
     On the CPU the plain versions run any width.  ``sp_infer`` together
-    with ``stream_infer`` raises ``ValueError``."""
+    with ``stream_infer``, a ``compute_dtype`` other than float32 and
+    bfloat16 and an unknown island raise ``ValueError``, a ``remat_policy``
+    other than none, full and dots ``KeyError``."""
     if cfg.sp_infer and cfg.stream_infer:
         raise ValueError(
             "sp_infer and stream_infer are mutually exclusive: "
             "sequence-parallel decoding shards one full-length program "
             "over the mesh while streaming chunks a single device's "
             "decode; pick one (configs: sp_infer / stream_infer)")
-    unsupported = {
-        "use_spk_embed": cfg.use_spk_embed,
-        "compute_dtype != float32": cfg.compute_dtype != "float32",
-        "use_spectral_norm": cfg.use_spectral_norm,
-        "accumulate_grad_batches > 1": cfg.accumulate_grad_batches > 1,
-        "remat_policy != none": cfg.remat_policy != "none",
-        "sp_infer": cfg.sp_infer,
-    }
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {cfg.compute_dtype!r} is not one "
+                         f"of {sorted(COMPUTE_DTYPES)}")
+    unknown = set(cfg.bf16_f32_islands) - set(ISLANDS)
+    if unknown:
+        raise ValueError(f"bf16_f32_islands {sorted(unknown)} are not "
+                         f"subsystems; choose from {ISLANDS}")
+    if cfg.remat_policy not in REMAT_POLICIES:
+        # the JAX step looks the policy up in a dict of these names
+        raise KeyError(f"remat_policy {cfg.remat_policy!r} is not one of "
+                       f"{REMAT_POLICIES}")
+    unsupported = {"sp_infer": cfg.sp_infer}
     if str(device).startswith("cuda"):
         h, heads = cfg.hidden_size, cfg.num_heads
         dk = h // heads
@@ -373,7 +392,31 @@ def tpu_run() -> Config:
     )
 
 
-RECIPES = {"visinger_csd": visinger_csd, "tpu_run": tpu_run}
+def soak_r5() -> Config:
+    """``configs/soak_r5.yaml`` as the JAX package loads it: the ``tpu_run``
+    demo under the production defaults, bf16 compute (no float32 islands),
+    async checkpoints, rendered validation and the test split scored after
+    training, for 20000 optimizer steps.  The YAML's bucket lists and
+    ``eval_max_batches`` do not take effect there: ``tpu_run.yaml``'s
+    (its base config) win, so they are ``tpu_run``'s here too."""
+    return tpu_run().replace(
+        work_dir="checkpoints/soak_r5",
+        compute_dtype="bfloat16",
+        bf16_f32_islands=(),
+        logs_clamp=5.0,
+        max_updates=20000,
+        test_after_train=True,
+        val_check_interval=1000,
+        num_ckpt_keep=3,
+        async_checkpoint=True,
+        render_valid=True,
+        tb_log_interval=100,
+        steps_per_epoch=0,
+    )
+
+
+RECIPES = {"visinger_csd": visinger_csd, "tpu_run": tpu_run,
+           "soak_r5": soak_r5}
 
 
 def tiny_config() -> Config:

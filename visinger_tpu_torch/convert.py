@@ -11,6 +11,8 @@ in the tree becomes keys ``a.b.c.<param>``.  Layout rules:
   ConvTranspose1d kernel [k, in, out] -> weight_v [in, out, k] (no flip)
                   (the decoder's ``up_<i>`` modules)
   Conv2dP         kernel [kh, 1, in, out] -> weight_v [out, in, kh, 1]
+  spectral norm   a conv with ``kernel`` and no ``g`` (the discriminators'
+                  ``use_spectral_norm`` layout) -> weight, same permutation
   Dense           kernel [in, out]    -> weight [out, in]
   Embed           embedding           -> weight, unchanged
   LayerNorm       gamma / beta        -> unchanged
@@ -38,7 +40,7 @@ def _module(path: str, leaves: dict) -> dict:
             w = kernel.transpose(1, 2, 0)
         elif kernel.ndim == 3:
             w = kernel.transpose(2, 1, 0)
-        elif kernel.ndim == 4 and kernel.shape[1] == 1 and g is not None:
+        elif kernel.ndim == 4 and kernel.shape[1] == 1:
             w = kernel.transpose(3, 2, 0, 1)
         elif kernel.ndim == 2 and g is None:
             w = kernel.T

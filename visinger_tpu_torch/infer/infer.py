@@ -40,6 +40,7 @@ from visinger_tpu_torch.data.preprocess import (midi_to_encoding,
 from visinger_tpu_torch.infer.streaming import StreamingSynthesizer
 from visinger_tpu_torch.models.factory import build_model, resolve_device
 from visinger_tpu_torch.utils.audio.align import get_note2dur
+from visinger_tpu_torch.utils.audio.spk_embed import SPK_EMBED_DIM
 from visinger_tpu_torch.utils.audio.io import save_wav
 from visinger_tpu_torch.utils.midi import MidiFile
 from visinger_tpu_torch.utils.text.token_encoder import build_token_encoder
@@ -216,7 +217,8 @@ class VISingerInfer:
         bucket edges at or above its lengths, or unpadded past the largest,
         valid frames).  The padding sets the numerics (the token positions
         depend on the padded count; padded frames move the tail samples),
-        so it is the JAX package's."""
+        so it is the JAX package's.  A ``use_spk_embed`` recipe gets a zero
+        voice embedding, as the JAX package's default."""
         cfg = self.cfg
         t = len(inp["mel2ph"])
         buckets = list(cfg.frame_buckets)
@@ -237,6 +239,8 @@ class VISingerInfer:
         batch["note_pitch"][0, :n] = inp["note_pitch"][:n]
         batch["note_dur"][0, :n] = inp["note_dur"][:n]
         batch["mel2ph"][0, :t] = inp["mel2ph"]
+        if cfg.use_spk_embed:
+            batch["spk_embed"] = np.zeros((1, SPK_EMBED_DIM), np.float32)
         return batch, t
 
     def prior_noise(self, t_pad: int, seed: int) -> torch.Tensor:
@@ -251,16 +255,21 @@ class VISingerInfer:
             return self._streamer.synthesize(batch, eps)
         z_p, mask = self.model.infer_prior(
             batch["text_tokens"], batch["note_pitch"], batch["note_dur"],
-            batch["mel2ph"], spk_id=batch["spk_ids"], eps=eps)
-        return self.model.decode_frames(z_p, mask, spk_id=batch["spk_ids"])
+            batch["mel2ph"], spk_id=batch["spk_ids"], eps=eps,
+            spk_embed=batch.get("spk_embed"))
+        return self.model.decode_frames(z_p, mask, spk_id=batch["spk_ids"],
+                                        spk_embed=batch.get("spk_embed"))
 
     def _run(self, rows: list[dict], seed: int) -> tuple[np.ndarray, float]:
         """Padded batches of 1 with one bucket pair -> (wavs [B, T*hop],
         wall seconds from the inputs on the device to the waveform ready
         there)."""
         dev = self.device
-        batch = {k: torch.from_numpy(np.concatenate([r[k] for r in rows]))
-                 .long().to(dev) for k in rows[0]}
+        batch = {}
+        for k in rows[0]:
+            a = torch.from_numpy(np.concatenate([r[k] for r in rows]))
+            batch[k] = (a.float() if a.is_floating_point() else a.long()).to(
+                dev)
         eps = torch.cat([self.prior_noise(r["mel2ph"].shape[1], seed)
                          for r in rows]).to(dev)
         _synchronize(dev)

@@ -23,6 +23,7 @@ where the window's own zero padding is the full decode's boundary.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -104,12 +105,15 @@ class StreamingSynthesizer:
         chunked tail; ``eps`` [B, T, H] is the prior noise.  -> [B, T*hop]."""
         z_p, mask = self.model.infer_prior(
             batch["text_tokens"], batch["note_pitch"], batch["note_dur"],
-            batch["mel2ph"], spk_id=batch["spk_ids"], eps=eps)
-        return self.decode(z_p, mask, spk_id=batch["spk_ids"])
+            batch["mel2ph"], spk_id=batch["spk_ids"], eps=eps,
+            spk_embed=batch.get("spk_embed"))
+        return self.decode(z_p, mask, spk_id=batch["spk_ids"],
+                           spk_embed=batch.get("spk_embed"))
 
     @torch.no_grad()
     def decode(self, z_p: torch.Tensor, mask: torch.Tensor,
-               spk_id: torch.Tensor | None = None) -> torch.Tensor:
+               spk_id: torch.Tensor | None = None,
+               spk_embed: torch.Tensor | None = None) -> torch.Tensor:
         """z_p [B, T, H], mask [B, T, 1] -> waveform [B, T*hop] equal to
         ``model.decode_frames`` on the full length.
 
@@ -124,7 +128,8 @@ class StreamingSynthesizer:
             self.window
         if spk_id is None:
             spk_id = torch.zeros(b, dtype=torch.long, device=z_p.device)
-        decode = self.model.decode_frames
+        decode = functools.partial(self.model.decode_frames,
+                                   spk_embed=spk_embed)
         if t <= window:
             pad = (0, 0, 0, window - t)
             wav = decode(torch.nn.functional.pad(z_p, pad),

@@ -6,7 +6,8 @@ from __future__ import annotations
 import torch
 
 from visinger_tpu_torch.config import Config, check_supported
-from visinger_tpu_torch.models.visinger import VISinger
+from visinger_tpu_torch.models.visinger import VISinger, subsystem_dtype
+from visinger_tpu_torch.modules.common import set_compute_dtype
 from visinger_tpu_torch.modules.discriminator import MultiPeriodDiscriminator
 
 
@@ -39,12 +40,16 @@ def build_models(cfg: Config, ph_vocab: int, pitch_vocab: int,
                  dur_vocab: int, device="cuda", seed: int = 0
                  ) -> tuple[VISinger, MultiPeriodDiscriminator]:
     """The generator and the discriminator (MPD + MSD) for training, drawn
-    on the CPU from ``seed`` as ``build_model`` does, on ``device``."""
+    on the CPU from ``seed`` as ``build_model`` does, on ``device``; the
+    discriminator computes in ``compute_dtype`` unless ``bf16_f32_islands``
+    holds "disc"."""
     dev = resolve_device(device)
     model = build_model(cfg, ph_vocab, pitch_vocab, dur_vocab, dev, seed)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed + 1)
         disc = MultiPeriodDiscriminator(
             tuple(cfg.disc_periods), cfg.disc_s_base,
-            tuple(cfg.disc_p_channels), cfg.disc_pair_batch)
+            tuple(cfg.disc_p_channels), cfg.disc_pair_batch,
+            cfg.use_spectral_norm)
+    set_compute_dtype(disc, subsystem_dtype(cfg, "disc"))
     return model, disc.to(dev).eval()

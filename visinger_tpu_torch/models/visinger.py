@@ -10,6 +10,12 @@ of z_q and its decode.  The public methods keep the JAX layout at their
 boundary ([B, T, H] latents, [B, T, 1] masks, [B, T*hop] waveforms);
 inside, modules run [B, C, T].  In training mode (``model.train()``)
 dropout is on, its masks drawn from the ``generator`` passed in.
+
+Each subsystem computes in ``cfg.compute_dtype`` unless
+``cfg.bf16_f32_islands`` names it (``subsystem_dtype``, the JAX model's
+``dt``).  The speaker condition is the sum of ``spk_embed_proj`` of the
+voice embedding (``use_spk_embed``) and the speaker-id embedding
+(``use_spk_id``), float32.
 """
 
 from __future__ import annotations
@@ -18,7 +24,8 @@ import torch
 from torch import nn
 
 from visinger_tpu_torch.config import Config, check_supported
-from visinger_tpu_torch.modules.common import positional_embedding
+from visinger_tpu_torch.modules.common import (positional_embedding,
+                                               set_compute_dtype)
 from visinger_tpu_torch.modules.encoders import (FramePriorNetwork,
                                                  PhonemePredictor,
                                                  PitchPredictor,
@@ -26,6 +33,20 @@ from visinger_tpu_torch.modules.encoders import (FramePriorNetwork,
 from visinger_tpu_torch.modules.flow import ResidualCouplingBlock
 from visinger_tpu_torch.modules.hifigan import HiFiGANGenerator
 from visinger_tpu_torch.ops.masking import rand_slice_segments
+from visinger_tpu_torch.utils.audio.spk_embed import SPK_EMBED_DIM
+
+SUBSYSTEMS = {"text_encoder": "text_encoder", "pitch": "pitch_predictor",
+              "phoneme": "phoneme_predictor", "frame_prior": "frame_prior",
+              "posterior": "posterior_encoder", "flow": "flow",
+              "decoder": "decoder"}
+
+
+def subsystem_dtype(cfg: Config, name: str) -> torch.dtype:
+    """The compute dtype of subsystem ``name`` (a ``config.ISLANDS`` name):
+    float32 when ``bf16_f32_islands`` holds it, else ``compute_dtype``."""
+    if name in cfg.bf16_f32_islands:
+        return torch.float32
+    return getattr(torch, cfg.compute_dtype)
 
 
 def _ct(a: torch.Tensor) -> torch.Tensor:
@@ -56,11 +77,14 @@ class VISinger(nn.Module):
             ph_vocab, pitch_vocab, dur_vocab, h, cfg.ffn_filter_channels,
             cfg.num_heads, cfg.enc_layers, cfg.ffn_kernel_size, w,
             use_pos_embed=True, p_dropout=drop)
-        gin = cfg.gin_channels if cfg.use_spk_id else 0
+        gin = cfg.gin_channels if cfg.use_spk_id or cfg.use_spk_embed \
+            else 0
         if cfg.use_spk_id:
             self.spk_id_proj = nn.Embedding(cfg.num_spk, cfg.gin_channels)
             nn.init.normal_(self.spk_id_proj.weight, 0.0,
                             cfg.gin_channels ** -0.5)
+        if cfg.use_spk_embed:
+            self.spk_embed_proj = nn.Linear(SPK_EMBED_DIM, cfg.gin_channels)
         if cfg.use_pitch_embed:
             self.pitch_predictor = PitchPredictor(
                 h, cfg.ffn_filter_channels, cfg.num_heads,
@@ -85,12 +109,23 @@ class VISinger(nn.Module):
             tuple(tuple(d) for d in cfg.dec_dilation_sizes),
             tuple(cfg.upsample_rates), cfg.initial_upsample_channels,
             tuple(cfg.upsample_kernel_sizes), gin)
+        for name, attr in SUBSYSTEMS.items():
+            if hasattr(self, attr):
+                set_compute_dtype(getattr(self, attr),
+                                  subsystem_dtype(cfg, name))
 
-    def speaker_embedding(self, spk_id) -> torch.Tensor | None:
-        """-> [B, 1, gin] or None."""
+    def speaker_embedding(self, spk_id, spk_embed=None
+                          ) -> torch.Tensor | None:
+        """-> [B, 1, gin] or None: ``spk_embed_proj(spk_embed)`` plus the
+        speaker-id embedding, each where the recipe has it and it is
+        given."""
+        g = None
+        if self.cfg.use_spk_embed and spk_embed is not None:
+            g = self.spk_embed_proj(spk_embed.float())[:, None, :]
         if self.cfg.use_spk_id and spk_id is not None:
-            return self.spk_id_proj(spk_id)[:, None, :]
-        return None
+            e = self.spk_id_proj(spk_id)[:, None, :]
+            g = e if g is None else g + e
+        return g
 
     def forward_pitch(self, pitch_inp, spk_emb, tgt_nonpadding, f0=None,
                       uv=None, generator=None):
@@ -115,7 +150,8 @@ class VISinger(nn.Module):
         return cond, pitch_pred
 
     def prior_stats(self, text_tokens, pitch_tokens, dur_tokens, mel2ph,
-                    spk_id=None, f0=None, uv=None, generator=None) -> dict:
+                    spk_id=None, f0=None, uv=None, generator=None,
+                    spk_embed=None) -> dict:
         """Everything that needs global attention: -> {mu_p, logs_p
         [B, T, H], tgt_nonpadding [B, T, 1], f0_pred [B, T, 2]}; ``f0``/``uv``
         [B, T] teacher-force the pitch condition (training)."""
@@ -127,7 +163,7 @@ class VISinger(nn.Module):
         if cfg.use_pos_embed:
             prior_inp = prior_inp + positional_embedding(tgt[..., 0],
                                                          cfg.hidden_size)
-        spk_emb = self.speaker_embedding(spk_id)
+        spk_emb = self.speaker_embedding(spk_id, spk_embed)
         ret = {"tgt_nonpadding": tgt}
         cond = None
         if cfg.use_pitch_embed:
@@ -140,17 +176,18 @@ class VISinger(nn.Module):
         return ret
 
     def infer_prior(self, text_tokens, pitch_tokens, dur_tokens, mel2ph,
-                    spk_id=None, eps=None, generator=None):
+                    spk_id=None, eps=None, generator=None, spk_embed=None):
         """Score -> sampled prior latent.  ``eps`` [B, T, H] is the prior
         noise; when None it is drawn from ``generator``.  Returns
         (z_p [B, T, H], tgt_nonpadding [B, T, 1])."""
         st = self.prior_stats(text_tokens, pitch_tokens, dur_tokens, mel2ph,
-                              spk_id)
+                              spk_id, spk_embed=spk_embed)
         return _sample(st, eps, generator), st["tgt_nonpadding"]
 
-    def decode_frames(self, z_p, tgt_nonpadding, spk_id=None):
+    def decode_frames(self, z_p, tgt_nonpadding, spk_id=None,
+                      spk_embed=None):
         """Flow reverse + HiFi-GAN: z_p [B, T, H] -> waveform [B, T*hop]."""
-        g = self.speaker_embedding(spk_id)
+        g = self.speaker_embedding(spk_id, spk_embed)
         g = None if g is None else _ct(g)
         mask = _ct(tgt_nonpadding)
         z_q = self.flow(_ct(z_p), mask, g=g, reverse=True).float() * mask
@@ -159,7 +196,7 @@ class VISinger(nn.Module):
     def forward(self, text_tokens, pitch_tokens, dur_tokens, mel2ph,
                 spk_id=None, infer: bool = True, eps=None, generator=None,
                 f0=None, uv=None, spec=None, lengths=None, item_weights=None,
-                eps_q=None, ids_slice=None):
+                eps_q=None, ids_slice=None, spk_embed=None):
         """The JAX ``__call__``.  ``infer=True`` -> {mu_p, logs_p, f0_pred,
         wav_out}.  ``infer=False`` (training) also takes ``f0``/``uv``
         [B, T], the linear spectrogram ``spec`` [B, T, num_linear_bins],
@@ -167,20 +204,21 @@ class VISinger(nn.Module):
         [B] (KL weights), and returns {mu_p, logs_p, f0_pred, ph_pred, z_p,
         z_q, mu_q, logs_q, kl, ids_slice, wav_out}.  The posterior noise
         ``eps_q`` [B, T, H] and the slice starts ``ids_slice`` [B] are drawn
-        from ``generator`` unless given."""
+        from ``generator`` unless given; ``spk_embed`` [B, 256] is the voice
+        embedding of a ``use_spk_embed`` recipe."""
         if infer:
             ret = self.prior_stats(text_tokens, pitch_tokens, dur_tokens,
-                                   mel2ph, spk_id)
+                                   mel2ph, spk_id, spk_embed=spk_embed)
             z_p = _sample(ret, eps, generator)
             tgt = ret.pop("tgt_nonpadding")
-            ret["wav_out"] = self.decode_frames(z_p, tgt, spk_id)
+            ret["wav_out"] = self.decode_frames(z_p, tgt, spk_id, spk_embed)
             return ret
         cfg = self.cfg
         ret = self.prior_stats(text_tokens, pitch_tokens, dur_tokens, mel2ph,
-                               spk_id, f0, uv, generator)
+                               spk_id, f0, uv, generator, spk_embed)
         tgt = ret.pop("tgt_nonpadding")
         mask = _ct(tgt)
-        g = self.speaker_embedding(spk_id)
+        g = self.speaker_embedding(spk_id, spk_embed)
         g = None if g is None else _ct(g)
         z_q, mu_q, logs_q = self.posterior_encoder(
             _ct(spec), mask, g=g, eps=None if eps_q is None else _ct(eps_q),

@@ -2,17 +2,20 @@
 ``modules/encoders.py``): the score encoder, the pitch predictor, the frame
 prior, the posterior encoder and the phoneme (CTC) predictor.  ``generator``
 arguments carry the dropout masks in training mode (see
-``modules/transformer.py``) and the posterior's noise."""
+``modules/transformer.py``) and the posterior's noise.  In a bf16 compute
+dtype the layers compute in bf16; the distribution statistics, the pitch
+head and the CTC log-softmax come out in float32, as in the JAX package."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from visinger_tpu_torch.modules.common import (Conv1d, TokenEmbedding,
-                                               positional_embedding)
+                                               in_dtype, positional_embedding)
 from visinger_tpu_torch.modules.transformer import RelativeEncoder
 from visinger_tpu_torch.modules.wavenet import WaveNet
 from visinger_tpu_torch.ops.expand import expand_states
@@ -21,6 +24,8 @@ from visinger_tpu_torch.ops.expand import expand_states
 class TextEncoder(nn.Module):
     """(phoneme, note-pitch, note-duration) token triples -> relative
     transformer -> length-regulated frame-rate features [B, T_frame, H]."""
+
+    dtype = torch.float32
 
     def __init__(self, ph_vocab: int, pitch_vocab: int, dur_vocab: int,
                  hidden_channels: int, filter_channels: int, n_heads: int,
@@ -43,16 +48,17 @@ class TextEncoder(nn.Module):
 
     def forward(self, text_tokens, pitch_tokens, dur_tokens, mel2ph,
                 generator=None):
-        h = self.hidden
-        nonpadding = (text_tokens > 0).float()[..., None]      # [B, N, 1]
+        h, dt = self.hidden, self.dtype
+        nonpadding = (text_tokens > 0).to(dt)[..., None]       # [B, N, 1]
         emb = torch.cat([self.ph_emb(text_tokens), self.pitch_emb(pitch_tokens),
                          self.dur_emb(dur_tokens)], dim=-1) * math.sqrt(h)
-        x = self.linear(emb) * nonpadding
+        x = in_dtype(F.linear, emb, self.linear.weight, self.linear.bias,
+                     dt) * nonpadding
         if self.use_pos_embed:
             # Token-level positions are scrambled on purpose: the reference
             # builds its table with seq_len = H and views it [B, H, T] before
             # transposing — reproduced as the JAX package does.
-            pos = positional_embedding(nonpadding[..., 0], h)
+            pos = positional_embedding(nonpadding[..., 0], h).to(dt)
             b, t, _ = pos.shape
             x = x + pos.reshape(b, h, t).transpose(1, 2)
         x = x * nonpadding

@@ -14,6 +14,8 @@ from visinger_tpu_torch.modules.wavenet import WaveNet
 
 
 class ResidualCouplingLayer(nn.Module):
+    dtype = torch.float32
+
     def __init__(self, channels: int, hidden_channels: int,
                  kernel_size: int = 5, n_layers: int = 4,
                  gin_channels: int = 0):
@@ -25,6 +27,7 @@ class ResidualCouplingLayer(nn.Module):
         self.post = Conv1d(hidden_channels, self.half, 1, init="zeros")
 
     def forward(self, x, x_mask, g=None, reverse: bool = False):
+        x, x_mask = x.to(self.dtype), x_mask.to(self.dtype)
         x0, x1 = x[:, :self.half], x[:, self.half:]
         h = self.pre(x0) * x_mask
         h = self.enc(h, x_mask, g=g)

@@ -50,7 +50,10 @@ class ResBlock2(nn.Module):
 
 
 class HiFiGANGenerator(nn.Module):
-    """z [B, C, T] -> waveform [B, T * prod(upsample_rates)]."""
+    """z [B, C, T] -> waveform [B, T * prod(upsample_rates)], float32 (z is
+    cast to the compute dtype on entry, the tanh runs in float32)."""
+
+    dtype = torch.float32
 
     def __init__(self, in_channels: int, resblock_type: str = "1",
                  resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
@@ -78,7 +81,7 @@ class HiFiGANGenerator(nn.Module):
 
     def forward(self, x: torch.Tensor, g: torch.Tensor | None = None):
         """x: [B, C, T]; g: [B, gin, 1] or None."""
-        x = self.conv_pre(x)
+        x = self.conv_pre(x.to(self.dtype))
         if g is not None and hasattr(self, "cond"):
             x = x + self.cond(g)
         for i in range(self.n_ups):

@@ -8,6 +8,10 @@ before every layer.  The attention core is kernel K1, and its backward K3
 (``ops/rel_attention.py``); the 1x1 projections run as plain matmuls on
 [B, T, C], the kernels' layout.
 
+In a bf16 compute dtype the projections run in bf16 and q, k, v go to the
+bf16 builds of K1 and K3; the relative tables stay float32, the scores and
+softmax float32 inside the kernels, LayerNorm statistics float32.
+
 Dropout (``p_dropout``) sits where the JAX stack has it: on the attention
 probabilities (inside K1, seeded per call), after the FFN's ReLU, and on each
 sublayer's output before the residual add.  It runs in training mode only,
@@ -23,11 +27,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from visinger_tpu_torch.modules.common import (ChannelLayerNorm, Conv1d,
-                                               dropout)
+                                               in_dtype, dropout)
 from visinger_tpu_torch.ops.rel_attention import rel_attention
 
 
 class RelativeMultiHeadAttention(nn.Module):
+    dtype = torch.float32
+
     def __init__(self, channels: int, n_heads: int, window_size: int = 4,
                  p_dropout: float = 0.0):
         super().__init__()
@@ -60,7 +66,8 @@ class RelativeMultiHeadAttention(nn.Module):
                                  device=x.device, dtype=torch.int32)
 
         def proj(conv, a):
-            return F.linear(a, conv.weight[:, :, 0], conv.bias)
+            return in_dtype(F.linear, a, conv.weight[:, :, 0], conv.bias,
+                            self.dtype)
 
         q, k, v = (proj(conv, xt).contiguous()
                    for conv in (self.conv_q, self.conv_k, self.conv_v))
@@ -88,7 +95,10 @@ class ConvFFN(nn.Module):
 
 class RelativeEncoder(nn.Module):
     """Post-LN stack of (relative MHA, conv FFN); ``pre_net(g)`` is added to
-    x before every layer when g is given."""
+    x before every layer when g is given.  x and its mask are cast to the
+    compute dtype on entry."""
+
+    dtype = torch.float32
 
     def __init__(self, hidden_channels: int, filter_channels: int,
                  n_heads: int, n_layers: int, kernel_size: int = 1,
@@ -119,6 +129,7 @@ class RelativeEncoder(nn.Module):
                 raise ValueError("RelativeEncoder: dropout in training mode "
                                  "needs a generator")
             gen = generator
+        x, x_mask = x.to(self.dtype), x_mask.to(self.dtype)
         if g is not None:
             g = self.pre_net(g)
         for i in range(self.n_layers):

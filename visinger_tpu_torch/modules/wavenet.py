@@ -8,6 +8,11 @@ gin->2C·L).  The forward assembles them the way
 (``ops/wavenet_stack.py``): ``cond_layer(g)`` gives a per-layer bias
 [B, L, 2C], and the last layer's C->C skip conv sits in the skip half of a
 zero-padded [C, 2C].  Dilation is 1, as everywhere in VISinger.
+
+K2 computes in float32 whatever the compute dtype, as the TPU kernel does:
+in a bf16 model the conditioning conv runs in bf16, the activations are cast
+to float32 at K2's edge and its output back to bf16.  (The JAX package's
+bf16 training step runs this stack as bf16 XLA convolutions instead.)
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from visinger_tpu_torch.ops.wavenet_stack import wavenet_stack
 
 
 class WaveNet(nn.Module):
+    dtype = torch.float32
+
     def __init__(self, hidden_channels: int, kernel_size: int = 5,
                  n_layers: int = 4, gin_channels: int = 0):
         super().__init__()
@@ -61,8 +68,10 @@ class WaveNet(nn.Module):
         w_in, b_in, w_rs, b_rs = self.stack_weights()
         g_bias = None
         if g is not None:
-            g_bias = self.cond_layer(g)[..., 0].reshape(b, self.n_layers,
-                                                        2 * c)
-        out = wavenet_stack(x.transpose(1, 2).contiguous(), w_in, b_in, w_rs,
-                            b_rs, g_bias, x_mask.transpose(1, 2).contiguous())
-        return out.transpose(1, 2) * x_mask
+            g_bias = self.cond_layer(g)[..., 0].float().reshape(
+                b, self.n_layers, 2 * c)
+        mask = x_mask.float()
+        out = wavenet_stack(x.float().transpose(1, 2).contiguous(), w_in,
+                            b_in, w_rs, b_rs, g_bias,
+                            mask.transpose(1, 2).contiguous())
+        return (out.transpose(1, 2) * mask).to(self.dtype)

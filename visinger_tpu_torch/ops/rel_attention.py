@@ -17,10 +17,18 @@ i, j) is at least ⌊rate·2³²⌋ and scales kept entries by 1/(1−rate); the
 is written once here (``dropout_keep``) and once in the CUDA source, so the
 kernels and their plain versions drop the same entries.
 
+bf16 q, k, v (the bf16 compute recipes) go to the bf16 builds of K1 and K3
+(``csrc/rel_attention_bf16.cu``), which round where the TPU kernel rounds:
+P to bf16 before P·V and the band term, the output in bf16; in the backward
+g in bf16, the dropped P in bf16 for dv and d emb_rel_v, every other product
+and dS in float32, dq/dk/dv in bf16.  The emb tables, the row statistics and
+the emb gradients stay float32.  The plain versions take the same dtypes.
+
 ``rel_attention`` is the entry point, differentiable: on CPU tensors it runs
 ``rel_attention_plain`` under ordinary autograd; on CUDA tensors its forward
 is K1 and its backward K3 (``_RelAttention``), or it raises.  ``launches``
-and ``bwd_launches`` count kernel launches.
+and ``bwd_launches`` count the float32 kernels' launches,
+``launches_bf16`` and ``bwd_launches_bf16`` the bf16 builds'.
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ from visinger_tpu_torch.ops.masking import prefix_lengths
 MASK_VAL = -1e4
 launches = 0
 bwd_launches = 0
+launches_bf16 = 0
+bwd_launches_bf16 = 0
 
 _M32 = 0xFFFFFFFF
 _GOLD = 0x9E3779B9
@@ -88,7 +98,10 @@ def rel_attention_plain(q, k, v, emb_rel_k, emb_rel_v, lengths, *,
                         rate: float = 0.0, with_stats: bool = False):
     """The same function in plain PyTorch (float32 scores and softmax).
 
-    q, k, v: [B, T, C] with head h in channels [h*dk, (h+1)*dk);
+    q, k, v: [B, T, C], float32 or bf16 (then P is rounded to bf16 before
+    P·V and the band term, and the result is bf16; the rounding passes the
+    gradient through unrounded, as the TPU kernel's backward computes dP in
+    float32), with head h in channels [h*dk, (h+1)*dk);
     emb_rel_k/v: [2w+1, dk] shared by the heads; lengths: [B] prefix lengths;
     seed: int32 tensor of one element, needed when ``rate`` > 0.
     Returns [B, T, C]; with ``with_stats`` also K1's stats [B, H, T, 2],
@@ -120,6 +133,8 @@ def rel_attention_plain(q, k, v, emb_rel_k, emb_rel_v, lengths, *,
     if rate > 0:
         keep = dropout_keep(seed.to(q.device), b, nh, t, rate)
         p = torch.where(keep, p * (1.0 / (1.0 - rate)), torch.zeros_like(p))
+    if v.dtype != torch.float32:
+        p = p + (p.to(v.dtype).float() - p).detach()
     out = p @ vh
     # band columns: w_rel[i, m] = p[i, i + m - w] where that key exists
     cols = idx[:, None] + torch.arange(2 * window + 1, device=q.device) - window
@@ -134,13 +149,18 @@ def rel_attention_bwd_plain(q, k, v, emb_rel_k, emb_rel_v, lengths, g, *,
                             window: int, scale: float, seed=None,
                             rate: float = 0.0):
     """K3's function in plain PyTorch: autograd of ``rel_attention_plain``
-    with the same mask.  Returns (dq, dk, dv, d emb_rel_k, d emb_rel_v)."""
+    with the same mask.  Returns (dq, dk, dv, d emb_rel_k, d emb_rel_v), dq,
+    dk, dv in the inputs' dtype (g is taken in the output's, q's, dtype)."""
     with torch.enable_grad():
         ins = [a.detach().requires_grad_(True)
                for a in (q, k, v, emb_rel_k, emb_rel_v)]
         out = rel_attention_plain(*ins, lengths, window=window, scale=scale,
                                   seed=seed, rate=rate)
-        return torch.autograd.grad(out, ins, g)
+        return torch.autograd.grad(out, ins, g.to(q.dtype))
+
+
+# the tensors that take q's dtype (float32 or bf16); the rest are float32
+_IN_DTYPE = ("q", "k", "v", "g", "out")
 
 
 def _check(name, tensors, lengths, seed, rate, window):
@@ -148,10 +168,14 @@ def _check(name, tensors, lengths, seed, rate, window):
     q = tensors["q"]
     b, t, c = q.shape
     m, dk = tensors["emb_rel_k"].shape
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: q must be float32 or bfloat16, got "
+                         f"{q.dtype}")
     for key, a in tensors.items():
+        want = q.dtype if key in _IN_DTYPE else torch.float32
         if a.device != q.device or a.device.type != "cuda" \
-                or a.dtype != torch.float32:
-            raise ValueError(f"{name}: {key} must be float32 on {q.device}, "
+                or a.dtype != want:
+            raise ValueError(f"{name}: {key} must be {want} on {q.device}, "
                              f"got {a.device} {a.dtype}")
         if not a.is_contiguous() or a.data_ptr() % 16:
             raise ValueError(f"{name}: {key} must be contiguous and 16-byte "
@@ -189,14 +213,17 @@ _DROP_TYPES = [ctypes.c_void_p, ctypes.c_uint, ctypes.c_float, ctypes.c_int]
 def rel_attention_fwd(q, k, v, emb_rel_k, emb_rel_v, lengths, *,
                       window: int, scale: float, seed=None,
                       rate: float = 0.0):
-    """Launch K1 (CUDA float32 contiguous tensors only).  Returns (out
-    [B, T, C], stats [B, H, T, 2]), stats being each row's softmax max and
-    sum."""
-    global launches
+    """Launch K1 (CUDA contiguous tensors; q, k, v float32, or bf16 for the
+    bf16 build; the emb tables float32).  Returns (out [B, T, C] in q's
+    dtype, stats [B, H, T, 2] float32), stats being each row's softmax max
+    and sum."""
+    global launches, launches_bf16
     b, t, c, dk = _check("rel_attention_fwd", {
         "q": q, "k": k, "v": v, "emb_rel_k": emb_rel_k,
         "emb_rel_v": emb_rel_v}, lengths, seed, rate, window)
-    fn = cuda_build.load("rel_attention").rel_attention_fwd
+    bf16 = q.dtype == torch.bfloat16
+    fn = (cuda_build.load("rel_attention_bf16").rel_attention_bf16_fwd
+          if bf16 else cuda_build.load("rel_attention").rel_attention_fwd)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 6 + _DROP_TYPES
                    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
@@ -209,22 +236,30 @@ def rel_attention_fwd(q, k, v, emb_rel_k, emb_rel_v, lengths, *,
              out.data_ptr(), stats.data_ptr(), b, t, c, dk, window,
              float(scale), stream)
     cuda_build.check(err, "rel_attention_fwd")
-    launches += 1
+    if bf16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out, stats
 
 
 def rel_attention_bwd(q, k, v, emb_rel_k, emb_rel_v, lengths, g, out, stats,
                       *, window: int, scale: float, seed=None,
                       rate: float = 0.0):
-    """Launch K3 given K1's ``out`` and ``stats`` (CUDA float32 contiguous
-    tensors only).  Returns (dq, dk, dv, d emb_rel_k, d emb_rel_v)."""
-    global bwd_launches
+    """Launch K3 given K1's ``out`` and ``stats`` (CUDA contiguous tensors;
+    q, k, v, g, out float32, or bf16 for the bf16 build, which reads no
+    ``out``).  Returns (dq, dk, dv in q's dtype, d emb_rel_k, d emb_rel_v
+    float32)."""
     b, t, c, dk = _check("rel_attention_bwd", {
         "q": q, "k": k, "v": v, "emb_rel_k": emb_rel_k,
         "emb_rel_v": emb_rel_v, "g": g, "out": out, "stats": stats},
         lengths, seed, rate, window)
     if stats.shape != (b, c // dk, t, 2):
         raise ValueError("rel_attention_bwd: stats must be [B, H, T, 2]")
+    if q.dtype == torch.bfloat16:
+        return _bwd_bf16(q, k, v, emb_rel_k, emb_rel_v, lengths, g, stats,
+                         window, scale, seed, rate)
+    global bwd_launches
     lib = cuda_build.load("rel_attention")
     size = lib.rel_attention_bwd_scratch
     size.restype = ctypes.c_longlong
@@ -253,6 +288,40 @@ def rel_attention_bwd(q, k, v, emb_rel_k, emb_rel_v, lengths, g, out, stats,
     return dq, dk_, dv, dek, dev
 
 
+def _bwd_bf16(q, k, v, emb_rel_k, emb_rel_v, lengths, g, stats, window,
+              scale, seed, rate):
+    """K3's bf16 build (arguments checked by ``rel_attention_bwd``)."""
+    global bwd_launches_bf16
+    b, t, c = q.shape
+    dk = emb_rel_k.shape[1]
+    lib = cuda_build.load("rel_attention_bf16")
+    size = lib.rel_attention_bf16_bwd_scratch
+    size.restype = ctypes.c_longlong
+    size.argtypes = [ctypes.c_int] * 5
+    n_scratch = size(b, t, c, dk, window)
+    if n_scratch < 0:
+        raise ValueError(f"rel_attention_bwd: head width {dk} must be a "
+                         f"multiple of 8, at most 128")
+    fn = lib.rel_attention_bf16_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + _DROP_TYPES
+                   + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_void_p])
+    dq, dk_, dv = (torch.empty_like(q) for _ in range(3))
+    dek = torch.empty_like(emb_rel_k)
+    dev = torch.empty_like(emb_rel_v)
+    scratch = torch.empty(n_scratch, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), emb_rel_k.data_ptr(),
+             emb_rel_v.data_ptr(), lengths.data_ptr(), *_drop_args(seed, rate),
+             g.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk_.data_ptr(),
+             dv.data_ptr(), dek.data_ptr(), dev.data_ptr(),
+             scratch.data_ptr(), b, t, c, dk, window, float(scale), stream)
+    cuda_build.check(err, "rel_attention_bwd")
+    bwd_launches_bf16 += 1
+    return dq, dk_, dv, dek, dev
+
+
 class _RelAttention(torch.autograd.Function):
     """Forward K1, backward K3 (CUDA tensors)."""
 
@@ -271,9 +340,10 @@ class _RelAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, ek, ev, lengths, seed, out, stats = ctx.saved_tensors
         window, scale, rate = ctx.cfg
-        grads = rel_attention_bwd(q, k, v, ek, ev, lengths, g.contiguous(),
-                                  out, stats, window=window, scale=scale,
-                                  seed=seed, rate=rate)
+        grads = rel_attention_bwd(q, k, v, ek, ev, lengths,
+                                  g.to(q.dtype).contiguous(), out, stats,
+                                  window=window, scale=scale, seed=seed,
+                                  rate=rate)
         return (*grads, None, None, None, None, None)
 
 

@@ -26,7 +26,9 @@ import threading
 
 import torch
 
+from visinger_tpu_torch.convert import params_from_jax
 from visinger_tpu_torch.training.train_state import AdamState, TrainState
+from visinger_tpu_torch.utils import flax_msgpack
 
 _CKPT_RE = re.compile(r"model_ckpt_steps_(\d+)\.pt$")
 
@@ -47,8 +49,12 @@ def state_to_host(state: TrainState) -> dict:
         return t.detach().to("cpu", copy=True)
 
     def adam(a: AdamState) -> dict:
-        return {"mu": [host(t) for t in a.mu], "nu": [host(t) for t in a.nu],
-                "count": int(a.count)}
+        out = {"mu": [host(t) for t in a.mu], "nu": [host(t) for t in a.nu],
+               "count": int(a.count)}
+        if a.acc is not None:  # gradient accumulation in flight
+            out["acc"] = [host(t) for t in a.acc]
+            out["mini_step"] = int(a.mini_step)
+        return out
 
     return {
         "model": {k: host(v) for k, v in state.model.state_dict().items()},
@@ -167,6 +173,12 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
             for t, s in zip(own, theirs[key]):
                 t.copy_(s)
         mine.count = int(theirs["count"])
+        if "acc" in theirs:
+            mine.acc = [s.to(t.device) for t, s in zip(mine.mu,
+                                                        theirs["acc"])]
+            mine.mini_step = int(theirs["mini_step"])
+        else:
+            mine.acc, mine.mini_step = None, 0
     state.step = int(saved["step"])
     if saved["generator_device"] == state.generator.device.type:
         state.generator.set_state(saved["generator"])
@@ -187,12 +199,28 @@ def restore_latest(work_dir: str, state: TrainState
     return state, state.step
 
 
+def load_jax_params(path: str) -> dict:
+    """The generator's and the discriminator's parameters of a JAX
+    package's checkpoint (``model_ckpt_*.msgpack``, flax's msgpack of its
+    ``TrainState``) as the port's ``state_dict`` entries: {"model": ...,
+    "disc": ...}.  Read by the port's own msgpack decoder and
+    ``convert.params_from_jax``; the optimizer states, step and key in the
+    file are not read."""
+    with open(path, "rb") as f:
+        raw = flax_msgpack.restore(f.read())
+    return {"model": params_from_jax(raw["params_g"]),
+            "disc": params_from_jax(raw["params_d"])}
+
+
 @torch.no_grad()
 def warm_start(path: str, state: TrainState) -> TrainState:
-    """Shape-tolerant warm start from another experiment's checkpoint:
-    every parameter and buffer whose name and shape match is copied in;
-    the rest, the step and the optimizer states stay fresh."""
-    saved = load_checkpoint(path)
+    """Shape-tolerant warm start from another experiment's checkpoint, the
+    port's ``.pt`` or the JAX package's ``.msgpack``: every parameter and
+    buffer whose name and shape match is copied in; the rest, the step and
+    the optimizer states stay fresh (a JAX checkpoint's optax states are not
+    carried over, as the JAX package's own warm start does not)."""
+    saved = (load_jax_params(path) if path.endswith(".msgpack")
+             else load_checkpoint(path))
     for scope, module, key in (("gen", state.model, "model"),
                                ("disc", state.disc, "disc")):
         own, theirs = module.state_dict(), saved[key]

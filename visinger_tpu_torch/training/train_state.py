@@ -11,6 +11,13 @@ gradients give the same parameters: the clip is g·max/‖g‖ when ‖g‖ > ma
 (``torch.nn.utils.clip_grad_norm_`` divides by ‖g‖ + 1e-6 instead), Adam
 bias-corrects both moments, and the weight decay is added to the Adam step
 before the learning rate scales it.
+
+With ``accumulate_grad_batches`` = k > 1, ``ClippedAdamW.step`` is
+``optax.MultiSteps(chain, k)``: each call folds its gradients into a
+running mean (acc += (g - acc) / (n + 1), n the micro-steps so far), and
+every k-th call runs the clip and AdamW once on the mean and clears it;
+the other calls leave the parameters and the Adam moments as they are.
+The learning-rate schedule counts the AdamW updates, i.e. optimizer steps.
 """
 
 from __future__ import annotations
@@ -24,10 +31,14 @@ from visinger_tpu_torch.config import Config
 
 @dataclass
 class AdamState:
-    """Moments of every parameter and the number of updates so far."""
+    """Moments of every parameter and the number of updates so far; with
+    gradient accumulation also the running mean of this optimizer step's
+    gradients and the micro-steps folded into it."""
     mu: list[torch.Tensor]
     nu: list[torch.Tensor]
     count: int = 0
+    acc: list[torch.Tensor] | None = None
+    mini_step: int = 0
 
 
 def init_adam(params: list[torch.Tensor]) -> AdamState:
@@ -72,6 +83,29 @@ class ClippedAdamW:
         if self.weight_decay:
             torch._foreach_add_(step, params, alpha=self.weight_decay)
         torch._foreach_add_(params, step, alpha=-lr)
+
+
+    @torch.no_grad()
+    def step(self, params: list[torch.Tensor], grads: list[torch.Tensor],
+             state: AdamState, accum: int = 1) -> bool:
+        """One micro-step of ``accum`` (``optax.MultiSteps``): fold
+        ``grads`` into the running mean and, at the k-th, ``update`` with the
+        mean.  Returns whether the parameters moved."""
+        if accum <= 1:
+            self.update(params, grads, state)
+            return True
+        if state.acc is None:
+            state.acc = [torch.zeros_like(g) for g in grads]
+        delta = torch._foreach_sub(grads, state.acc)
+        torch._foreach_div_(delta, float(state.mini_step + 1))
+        torch._foreach_add_(state.acc, delta)
+        state.mini_step += 1
+        if state.mini_step < accum:
+            return False
+        self.update(params, state.acc, state)
+        torch._foreach_zero_(state.acc)
+        state.mini_step = 0
+        return True
 
 
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:

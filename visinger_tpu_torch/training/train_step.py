@@ -13,13 +13,31 @@ The linear spectrogram is computed from the waveform, without gradient,
 unless the batch carries ``spec``.  Every random draw (posterior noise,
 slice starts, dropout masks, attention-dropout seeds) comes from the
 state's generator; ``eps_q`` and ``ids_slice`` may be passed in instead, so
-that a test can give the port the JAX step's draws.
+that a test can give the port the JAX step's draws.  A ``use_spk_embed``
+batch carries ``spk_embed`` [B, 256].
+
+``accumulate_grad_batches`` = k: ``state.step`` counts micro-batches and
+``state.step // k`` (the optimizer step) drives the KL warm-up and the
+discriminator's gates; each optimizer averages k micro-batches' gradients
+before its one update (``ClippedAdamW.step``).
+
+``remat_policy`` (the JAX step's ``jax.checkpoint`` of its two loss
+functions): "full" recomputes the generator's and the discriminator's loss
+functions in the backward (``torch.utils.checkpoint``), "dots" does so but
+keeps the matrix products' outputs (selective checkpointing).  The
+recompute restores the state's generator to where the forward started, so
+it draws the same noise, slices and dropout masks and the gradients are
+those of "none".
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from visinger_tpu_torch.config import Config, check_supported
 from visinger_tpu_torch.models.factory import resolve_device
@@ -69,6 +87,45 @@ def recon_losses(cfg: Config, stft: STFTParams, b: dict, out: dict,
     return losses
 
 
+# the matrix products whose outputs "dots" keeps (jax.checkpoint_policies
+# .checkpoint_dots); convolutions and elementwise work are recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(policy: str, fn, generator: torch.Generator):
+    """``fn()`` under ``policy`` ("none", "full" or "dots").  The
+    recompute in the backward first sets ``generator`` back to its state at
+    the forward's start (and afterwards to its state after the forward), so
+    it draws what the forward drew."""
+    if policy == "none":
+        return fn()
+    start = generator.get_state()
+    ran = []
+
+    def run():
+        if not ran:
+            ran.append(True)
+            return fn()
+        after = generator.get_state()
+        generator.set_state(start)
+        try:
+            return fn()
+        finally:
+            generator.set_state(after)
+
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return checkpoint(run, use_reentrant=False, **kw)
+
+
 class TrainStep:
     """``train_step(state, batch) -> (state, metrics)``; see the module
     docstring.  ``batch`` holds the ``synthetic_batch`` fields (numpy arrays
@@ -89,11 +146,11 @@ class TrainStep:
 
     def generator_loss(self, state: TrainState, batch: dict, eps_q=None,
                        ids_slice=None):
-        """-> (total, losses, aux) at ``state.step``, with the model in
-        training mode; aux holds the generated and the real slices and the
-        item weights."""
+        """-> (total, losses, aux) at ``state.step``'s optimizer step, with
+        the model in training mode; aux holds the generated and the real
+        slices and the item weights."""
         cfg, b = self.cfg, self._batch(batch)
-        step = state.step
+        step = state.step // max(cfg.accumulate_grad_batches, 1)
         self.model.train()
         spec = b.get("spec")
         if spec is None:
@@ -108,7 +165,8 @@ class TrainStep:
             eps_q=None if eps_q is None else torch.as_tensor(
                 eps_q, device=self.device).float(),
             ids_slice=None if ids_slice is None else torch.as_tensor(
-                ids_slice, device=self.device))
+                ids_slice, device=self.device),
+            spk_embed=b.get("spk_embed"))
         losses = {"kl_v": out["kl"].detach(),
                   "kl": L.kl_schedule(out["kl"], step, cfg.kl_min,
                                       cfg.kl_start_steps, cfg.lambda_kl),
@@ -128,23 +186,32 @@ class TrainStep:
 
     def __call__(self, state: TrainState, batch: dict, eps_q=None,
                  ids_slice=None) -> tuple[TrainState, dict]:
-        total, losses, aux = self.generator_loss(state, batch, eps_q,
-                                                 ids_slice)
+        cfg = self.cfg
+        accum = max(cfg.accumulate_grad_batches, 1)
+        opt_step = state.step // accum
+        total, losses, aux = remat(
+            cfg.remat_policy,
+            lambda: self.generator_loss(state, batch, eps_q, ids_slice),
+            state.generator)
         params_g = list(self.model.parameters())
         grads_g = _grads(total, params_g)
         gnorm = global_norm(grads_g)
-        self.opt_g.update(params_g, grads_g, state.opt_state_g)
+        self.opt_g.step(params_g, grads_g, state.opt_state_g, accum)
 
-        cfg, loss_d = self.cfg, torch.zeros((), device=self.device)
-        if (cfg.lambda_mel_adv > 0 and state.step >= cfg.disc_start_steps
-                and state.step % cfg.disc_interval == 0):
-            real_scores, fake_scores, _, _ = self.disc(
-                aux["real"].detach(), aux["wav_out"].detach())
-            loss_d = L.discriminator_loss(real_scores, fake_scores,
-                                          aux["item_weights"])
+        loss_d = torch.zeros((), device=self.device)
+        if (cfg.lambda_mel_adv > 0 and opt_step >= cfg.disc_start_steps
+                and opt_step % cfg.disc_interval == 0):
+            real, fake = aux["real"].detach(), aux["wav_out"].detach()
+
+            def disc_loss():
+                real_scores, fake_scores, _, _ = self.disc(real, fake)
+                return L.discriminator_loss(real_scores, fake_scores,
+                                            aux["item_weights"])
+
+            loss_d = remat(cfg.remat_policy, disc_loss, state.generator)
             params_d = list(self.disc.parameters())
-            self.opt_d.update(params_d, _grads(loss_d, params_d),
-                              state.opt_state_d)
+            self.opt_d.step(params_d, _grads(loss_d, params_d),
+                            state.opt_state_d, accum)
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total_g"] = total.detach()
         metrics["disc"] = loss_d.detach()
@@ -228,7 +295,8 @@ class EvalStep:
                 uv=b.get("uv"), spec=spec, lengths=b.get("mel_lengths"),
                 item_weights=w,
                 eps_q=torch.as_tensor(eps_q, device=self.device).float(),
-                ids_slice=torch.as_tensor(ids_slice, device=self.device))
+                ids_slice=torch.as_tensor(ids_slice, device=self.device),
+                spk_embed=b.get("spk_embed"))
         finally:
             self.model.train()
         m = {"kl": out["kl"] * cfg.lambda_kl,

@@ -126,7 +126,7 @@ def synthesize(model, batch: dict, seed: int
     dev = next(model.parameters()).device
     x = {k: torch.from_numpy(np.asarray(batch[k])).to(dev)
          for k in ("text_tokens", "note_pitch", "note_dur", "mel2ph",
-                   "spk_ids")}
+                   "spk_ids", "spk_embed") if k in batch}
     b, t = x["mel2ph"].shape
     eps = torch.randn(b, t, model.cfg.hidden_size,
                       generator=torch.Generator().manual_seed(seed)).to(dev)
@@ -134,7 +134,8 @@ def synthesize(model, batch: dict, seed: int
     model.eval()
     try:
         out = model(x["text_tokens"], x["note_pitch"], x["note_dur"],
-                    x["mel2ph"], spk_id=x["spk_ids"], infer=True, eps=eps)
+                    x["mel2ph"], spk_id=x["spk_ids"], infer=True, eps=eps,
+                    spk_embed=x.get("spk_embed"))
     finally:
         model.train(was_training)
     return out["wav_out"], out.get("f0_pred")
