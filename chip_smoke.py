@@ -16,8 +16,8 @@ Phases, each printing a line; any failure raises and exits nonzero:
      convolutions (every comparison below is float32);
   2. build the CUDA kernels from ``visinger_tpu_torch/csrc`` (one nvcc per
      source, in parallel); print each kernel's registers and spills
-     (``-Xptxas -v``) and its dynamic shared memory and resident blocks per
-     SM at the model's shapes;
+     (``-Xptxas -v``; per kernel for the bf16 builds) and its dynamic
+     shared memory and resident blocks per SM at the model's shapes;
   3. K1 (relative attention) against its plain version, out and each
      row's softmax max and sum (which K3 reads), at the frame-rate shape
      [4, 640, 192], the token-rate shape [4, 192, 192], a ragged
@@ -31,15 +31,19 @@ Phases, each printing a line; any failure raises and exits nonzero:
      second seed's different mask;
   4. K3 (attention backward) against autograd of the plain version at both
      shapes, dropout off and 0.1, with a random g; a second run on the same
-     inputs must give bit-identical gradients; then the bf16 builds of K1
-     and K3 (phases ``k1_bf16``, ``k3_bf16``) against the plain versions on
-     the same bf16 q, k, v at [4, 640, 192], [4, 192, 192] and a ragged
-     [4, 637, 192], dropout off and 0.1: bf16 results within one bf16 ulp
-     of their peak, K1's row max and sum within 1e-5, the float32 emb
-     gradients within 1e-3 of their peak, K3 bit-identical on a rerun;
-     their times beside the float32 builds' and, for K1,
-     ``scaled_dot_product_attention`` in bf16; bounds at the bf16 dense
-     tensor-core rate;
+     inputs must give bit-identical gradients (beside it
+     ``scaled_dot_product_attention`` forward and backward as a yardstick);
+     then the bf16 builds of K1 and K3 (phases ``k1_bf16``, ``k3_bf16``)
+     against the plain versions on the same bf16 q, k, v at every
+     ``BF16_CASES`` shape ([4, 640, 192], [4, 192, 192], a ragged
+     [4, 637, 192], head widths 64 and 128, the MIDI phrase
+     [1, 1280, 192]) and, for K1, ``BF16_LONG`` ([2, 2600, 192], its
+     global-scratch build), dropout off and 0.1: bf16 results within one
+     bf16 ulp of their peak, K1's row max and sum within 1e-5, the float32
+     emb gradients within 1e-3 of their peak, K3 bit-identical on a rerun;
+     their times beside the float32 builds' and
+     ``scaled_dot_product_attention`` in bf16 (K3: forward and backward);
+     bounds at the bf16 dense tensor-core rate;
   5. K2 (WaveNet stack) at the flow shape x [4, 640, 192], L=4, at the
      posterior shape, L=16, where the gradients of its autograd function are
      also held against plain autograd, and at the streaming window
@@ -97,7 +101,9 @@ Phases, each printing a line; any failure raises and exits nonzero:
  11. the ``soak_r5`` recipe, bf16 compute (phase ``bf16``): a synthesis
      group of 4 beside the float32 model's, 5 full-width bf16 training
      steps in turns with 5 float32 steps after 2 warm-ups each (launches
-     per bf16 step K1-bf16 18, K3-bf16 18, K2 5), each kind's peak memory, a
+     per bf16 step K1-bf16 18, K3-bf16 18, K2 5; under ``--profile`` the
+     step's device time and K1-bf16's and K3-bf16's share), each kind's
+     peak memory, a
      step with the ``phoneme`` island (its layers in float32: K1 and K3 2
      a step), one step's losses on the card and on the CPU (within
      TOL_BF16_LOSS_REL), and ``run synth-data``, ``binarize`` (with voice
@@ -121,6 +127,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -321,26 +328,35 @@ def stats_err(got, ref) -> float:
     return float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max())
 
 
-def sdpa_partial_ms(torch, ra, q, k, v, ek, lens, window, scale) -> float:
-    """Device ms of ``scaled_dot_product_attention`` on K1's q, k, v with the
-    band bias and the length mask as one additive float mask: a yardstick
-    only, since it lacks the band-column term and adds -1e4 where K1 sets
-    it (the port never calls it)."""
-    b, t, c = q.shape
+def sdpa_operands(torch, ra, ek, lens, window, scale, *tensors):
+    """[B, H, T, dk] heads of each [B, T, C] tensor, and the band bias and
+    length mask of K1's scores (from the first tensor, q) as one additive
+    float mask in q's dtype: the inputs of the ``scaled_dot_product_attention``
+    yardsticks, which lack the band-column term (the port never calls it)."""
+    b, t, c = tensors[0].shape
     dk = ek.shape[1]
-    qh, kh, vh = (a.reshape(b, t, c // dk, dk).transpose(1, 2).contiguous()
-                  for a in (q, k, v))
-    idx = torch.arange(t, device=q.device)
+    heads = [a.reshape(b, t, c // dk, dk).transpose(1, 2).contiguous()
+             for a in tensors]
+    idx = torch.arange(t, device=ek.device)
     off = idx[None, :] - idx[:, None]
-    rel = (qh.float() @ ek.t()) * scale
+    rel = (heads[0].float() @ ek.t()) * scale
     bias = torch.gather(rel, -1, (off + window).clamp(0, 2 * window).expand(
         b, c // dk, t, t)) * (off.abs() <= window)
     valid = idx[None, :] < lens[:, None].long()
     valid = valid[:, None, :, None] & valid[:, None, None, :]
     mask = (bias + torch.where(valid, 0.0, ra.MASK_VAL)).to(
-        q.dtype).contiguous()
+        tensors[0].dtype).contiguous()
+    return heads, mask
+
+
+def sdpa_partial_ms(torch, ra, q, k, v, ek, lens, window, scale) -> float:
+    """Device ms of ``scaled_dot_product_attention`` on K1's q, k, v with the
+    band bias and the length mask as one additive float mask: a yardstick
+    only, since it lacks the band-column term and adds -1e4 where K1 sets
+    it (the port never calls it)."""
+    heads, mask = sdpa_operands(torch, ra, ek, lens, window, scale, q, k, v)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    return device_ms(torch, lambda: sdpa(qh, kh, vh, attn_mask=mask,
+    return device_ms(torch, lambda: sdpa(*heads, attn_mask=mask,
                                          scale=scale))
 
 
@@ -493,6 +509,9 @@ def check_rel_attention_bwd(torch, ra, dev):
                    "bit_identical_rerun": True, **times,
                    **bounds(flops, nbytes),
                    "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+            if rate == 0.0:
+                row["sdpa_partial_ms"] = sdpa_fwd_bwd_ms(
+                    torch, ra, q, k, v, ek, g, lens, window, dk ** -0.5)
             phase("k3_rel_attention_bwd", **row)
             rows.append(row)
     return rows
@@ -513,26 +532,59 @@ def bounds_bf16(flops: float, nbytes: float) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-BF16_CASES = (("frame", 640, [640, 600, 517, 333]),
-              ("token", 192, [192, 180, 151, 97]),
-              ("ragged", 637, [637, 600, 64, 1]))
+# (label, T, C, lengths) with 2 heads: the frame, token and ragged shapes,
+# head widths 64 and 128 (the generic build) and the longest MIDI phrase
+BF16_CASES = (("frame", 640, 192, [640, 600, 517, 333]),
+              ("token", 192, 192, [192, 180, 151, 97]),
+              ("ragged", 637, 192, [637, 600, 64, 1]),
+              ("dk 64", 640, 128, [640, 600, 517, 333]),
+              ("dk 128", 100, 256, [100, 37]),
+              ("midi phrase", 1280, 192, [1237]))
+# K1-bf16 only: a T too long for its score buffer in shared memory (the
+# build with the buffer in a global scratch)
+BF16_LONG = ("long", 2600, 192, [2600, 1999])
+
+
+def bf16_inputs(torch, gen, t, c, lengths, dev, heads=2, window=4):
+    """bf16 q, k, v [len(lengths), t, c], float32 emb tables, int32 lengths."""
+    dk = c // heads
+    q, k, v = (torch.randn(len(lengths), t, c, generator=gen).to(dev)
+               .bfloat16() for _ in range(3))
+    ek, ev = (torch.randn(2 * window + 1, dk, generator=gen).mul(
+        dk ** -0.5).to(dev) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, k, v, ek, ev, lens
+
+
+def sdpa_fwd_bwd_ms(torch, ra, q, k, v, ek, g, lens, window, scale) -> float:
+    """Device ms of ``scaled_dot_product_attention`` forward and backward on
+    K3's q, k, v and g, in their dtype, with ``sdpa_operands``' mask: a
+    yardstick only (no band-column term; the port never calls it)."""
+    (qh, kh, vh, gh), mask = sdpa_operands(torch, ra, ek, lens, window,
+                                           scale, q, k, v, g)
+    ins = [a.detach().requires_grad_(True) for a in (qh, kh, vh)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def fwd_bwd():
+        out = sdpa(*ins, attn_mask=mask, scale=scale)
+        torch.autograd.grad(out, ins, gh)
+    return device_ms(torch, fwd_bwd)
 
 
 def check_k1_bf16(torch, ra, dev):
     """K1's bf16 build against the plain version on the same bf16 q, k, v
     (the plain version rounds P and the output where the TPU kernel does),
-    at the frame, token and ragged shapes, dropout off and 0.1; beside it
-    the float32 K1 on the same values and ``scaled_dot_product_attention``
-    in bf16 (the yardstick without the band term)."""
+    at every ``BF16_CASES`` shape and ``BF16_LONG``, dropout off and 0.1;
+    beside it (dropout off) the float32 K1 on the same values and
+    ``scaled_dot_product_attention`` in bf16 (the yardstick without the
+    band term)."""
     gen = torch.Generator(device="cpu").manual_seed(21)
-    c, heads, window = 192, 2, 4
-    dk = c // heads
+    heads, window = 2, 4
     seed = torch.tensor([4242], dtype=torch.int32, device=dev)
     rows = []
-    for label, t, lengths in BF16_CASES:
-        q, k, v, ek, ev = attention_inputs(torch, gen, t, dev)
-        q, k, v = (a.bfloat16() for a in (q, k, v))
-        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    for label, t, c, lengths in (*BF16_CASES, BF16_LONG):
+        dk = c // heads
+        q, k, v, ek, ev, lens = bf16_inputs(torch, gen, t, c, lengths, dev)
         for rate in (0.0, 0.1):
             kw = dict(window=window, scale=dk ** -0.5, seed=seed, rate=rate)
             out, stats = ra.rel_attention_fwd(q, k, v, ek, ev, lens, **kw)
@@ -547,14 +599,14 @@ def check_k1_bf16(torch, ra, dev):
                   f"{err} of the peak > {TOL_BF16_REL}")
             check(serr <= TOL_STATS_REL, f"K1-bf16 {label} rate {rate}: "
                   f"stats err {serr} > {TOL_STATS_REL}")
-            row = {"shape": f"[4, {t}, {c}] {label}", "lengths": lengths,
-                   "dropout": rate, "err_of_peak": err, "stats_err": serr,
+            row = {"shape": f"[{len(lengths)}, {t}, {c}] {label}",
+                   "lengths": lengths, "dropout": rate, "err_of_peak": err,
+                   "stats_err": serr,
                    "max_abs_err": float((out.float() - ref.float()).abs()
                                         .max())}
             if rate == 0.0:
                 q32, k32, v32 = (a.float() for a in (q, k, v))
-                flops, _ = k1_work(lengths, t, c, heads, window)
-                _, nbytes32 = k1_work(lengths, t, c, heads, window)
+                flops, nbytes32 = k1_work(lengths, t, c, heads, window)
                 row.update(
                     **timings(torch,
                               lambda: ra.rel_attention_fwd(q, k, v, ek, ev,
@@ -574,22 +626,21 @@ def check_k1_bf16(torch, ra, dev):
 
 def check_k3_bf16(torch, ra, dev):
     """K3's bf16 build against the plain bf16 backward (autograd of the
-    plain version, the rounding of P passing the gradient through) at the
-    frame, token and ragged shapes, dropout off and 0.1, with a random bf16
-    g; dq, dk, dv (bf16) within TOL_BF16_REL of their peaks, the emb
-    gradients (float32) within TOL_BF16_EMB; a second run gives the same
-    bits; beside it the float32 K3 on the same values."""
+    plain version, the rounding of P passing the gradient through) at every
+    ``BF16_CASES`` shape, dropout off and 0.1, with a random bf16 g; dq,
+    dk, dv (bf16) within TOL_BF16_REL of their peaks, the emb gradients
+    (float32) within TOL_BF16_EMB; a second run gives the same bits; beside
+    it (dropout off) the float32 K3 on the same values and
+    ``scaled_dot_product_attention`` forward and backward in bf16."""
     gen = torch.Generator(device="cpu").manual_seed(23)
-    c, heads, window = 192, 2, 4
-    dk = c // heads
+    heads, window = 2, 4
     seed = torch.tensor([2025], dtype=torch.int32, device=dev)
     names = ("dq", "dk", "dv", "d_emb_rel_k", "d_emb_rel_v")
     rows = []
-    for label, t, lengths in BF16_CASES:
-        q, k, v, ek, ev = attention_inputs(torch, gen, t, dev)
-        q, k, v = (a.bfloat16() for a in (q, k, v))
-        g = torch.randn(4, t, c, generator=gen).to(dev).bfloat16()
-        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    for label, t, c, lengths in BF16_CASES:
+        dk = c // heads
+        q, k, v, ek, ev, lens = bf16_inputs(torch, gen, t, c, lengths, dev)
+        g = torch.randn(len(lengths), t, c, generator=gen).to(dev).bfloat16()
         for rate in (0.0, 0.1):
             kw = dict(window=window, scale=dk ** -0.5, seed=seed, rate=rate)
             out, stats = ra.rel_attention_fwd(q, k, v, ek, ev, lens, **kw)
@@ -610,8 +661,8 @@ def check_k3_bf16(torch, ra, dev):
                       f"err {errs[n]} of the peak > {tol}")
                 check(torch.equal(a, b), f"K3-bf16 {label} rate {rate}: {n} "
                       f"differs between two runs on the same inputs")
-            row = {"shape": f"[4, {t}, {c}] {label}", "lengths": lengths,
-                   "dropout": rate, "errs_of_peak": errs,
+            row = {"shape": f"[{len(lengths)}, {t}, {c}] {label}",
+                   "lengths": lengths, "dropout": rate, "errs_of_peak": errs,
                    "bit_identical_rerun": True,
                    "max_abs_err": max(float((a.float() - r.float()).abs()
                                             .max())
@@ -629,6 +680,8 @@ def check_k3_bf16(torch, ra, dev):
                                   q, k, v, ek, ev, lens, g, **kw)),
                     f32_ms=device_ms(torch, lambda: ra.rel_attention_bwd(
                         q32, k32, v32, ek, ev, lens, g32, o32, s32, **kw)),
+                    sdpa_partial_ms=sdpa_fwd_bwd_ms(
+                        torch, ra, q, k, v, ek, g, lens, window, dk ** -0.5),
                     **bounds_bf16(flops, nbytes32 / 2),
                     gflop=flops / 1e9, mbytes=nbytes32 / 2e6)
             phase("k3_bf16", **row)
@@ -1834,7 +1887,10 @@ def bf16_phase(torch, ra, ws, dev, root: Path, f32_step_ms: float,
     med = {k: sorted(v)[steps // 2] for k, v in step_ms.items()}
     if profile:
         state, train_step = runs["bf16"]
-        profile_run(torch, lambda: train_step(state, tb), "train_step_bf16")
+        profile_run(torch, lambda: train_step(state, tb), "train_step_bf16",
+                    kernels={"k1_bf16": "rel_attention_bf16_fwd",
+                             "k3_bf16": "rel_attention_bf16_bwd"
+                                        "|sum_partials"})
     del runs
 
     # one step with the phoneme head in float32
@@ -2086,8 +2142,30 @@ def train_variants(torch, ra, ws, dev, data_dir: Path) -> dict:
     return rows
 
 
-def profile_run(torch, fn, tag: str):
-    """Device time by kernel and the device idle share of one ``fn()``."""
+def ptxas_functions(log: str) -> list:
+    """Each kernel's registers and spill bytes from ``nvcc -Xptxas -v``."""
+    rows, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            cur = {"function": m.group(1)}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return rows
+
+
+def profile_run(torch, fn, tag: str, kernels=None):
+    """Device time by kernel and the device idle share of one ``fn()``;
+    ``kernels`` maps a label to a regular expression of kernel names whose
+    device time the phase line sums (``kernel_ms``)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2107,8 +2185,11 @@ def profile_run(torch, fn, tag: str):
         if stop > end:
             busy_us += stop - max(start, end)
             end = stop
-    table = prof.key_averages().table(sort_by="self_device_time_total",
-                                      row_limit=40)
+    averages = prof.key_averages()
+    table = averages.table(sort_by="self_device_time_total", row_limit=40)
+    kernel_ms = {label: sum(getattr(e, "self_device_time_total", 0)
+                            for e in averages if re.search(pat, e.key)) / 1e3
+                 for label, pat in (kernels or {}).items()}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / f"profile_{tag}.txt").write_text(
@@ -2117,7 +2198,7 @@ def profile_run(torch, fn, tag: str):
     phase(f"profile_{tag}", wall_ms=wall * 1e3, device_busy_ms=busy_us / 1e3,
           device_kernels=len(spans),
           idle_share=1 - busy_us / 1e3 / (wall * 1e3),
-          table=f"chiprun_out/profile_{tag}.txt")
+          table=f"chiprun_out/profile_{tag}.txt", kernel_ms=kernel_ms)
 
 
 def main() -> int:
@@ -2160,11 +2241,18 @@ def main() -> int:
                     or "spill" in ln]
              for name, log in logs.items()}
     phase("build", seconds=build_s, ptxas=ptxas)
-    # at the model's shapes: dk = 96, window 4; C = 192, K = 5
+    # at the model's shapes: dk = 96, window 4; C = 192, K = 5; the bf16
+    # builds at T = 640 (the frame shape) and 1280 (the longest MIDI
+    # phrase; K1-bf16's scores take shared memory by T) and the generic
+    # build at dk = 64, with each kernel's registers and spills from ptxas
+    bf16_info = {f"T {t}, dk {d}": cuda_build.kernel_info(
+        "rel_attention_bf16", t, d, 4) for t, d in ((640, 96), (1280, 96),
+                                                     (640, 64))}
     phase("kernel_resources",
           rel_attention=cuda_build.kernel_info("rel_attention", 96, 4),
-          rel_attention_bf16=cuda_build.kernel_info("rel_attention_bf16", 96,
-                                                    4),
+          rel_attention_bf16=bf16_info,
+          rel_attention_bf16_ptxas=ptxas_functions(
+              logs.get("rel_attention_bf16", "")),
           wavenet_stack=cuda_build.kernel_info("wavenet_stack", 192, 5))
 
     k1_rows = check_rel_attention(torch, ra, dev)
@@ -2242,6 +2330,9 @@ def main() -> int:
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
          "bound_tc_ms": k3["bound_tc_ms"],
          "library_ms": None, "shape": f"{k3['shape']}, dropout 0.1",
+         "sdpa_partial_ms": next(
+             r["sdpa_partial_ms"] for r in k3_rows
+             if r["shape"].endswith("frame") and r["dropout"] == 0.0),
          "bit_identical_rerun": True,
          "pipeline_launches": pipeline_counts["rel_attention_bwd"],
          "trainer_launches": trainer_counts["rel_attention_bwd"]},
@@ -2291,8 +2382,12 @@ def main() -> int:
             "f32_ms": row["f32_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": None,
-            "sdpa_bf16_ms": row.get("sdpa_bf16_ms"),
-            "shape": f"{row['shape']} bf16"})
+            "sdpa_partial_ms": row.get("sdpa_bf16_ms",
+                                       row.get("sdpa_partial_ms")),
+            "shape": f"{row['shape']} bf16",
+            # device ms at every other shape, dropout off
+            "shapes_ms": {r["shape"]: r["ms"] for r in rows
+                          if r["dropout"] == 0.0}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -52,6 +52,7 @@ from visinger_tpu_torch.ops.rel_attention import (rel_attention_bwd_plain,
 from visinger_tpu_torch.training.train_state import create_train_state
 from visinger_tpu_torch.training.train_step import make_train_step
 
+import test_torch_port_cores  # noqa: F401  (shares the cores)
 from test_torch_port_kernels import (LENGTHS, T_ATT, _attention_inputs,
                                      _pack_heads, t)
 from test_torch_port_modules import fill_params

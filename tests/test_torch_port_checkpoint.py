@@ -22,6 +22,8 @@ from visinger_tpu_torch.training.checkpoint import (AsyncCheckpointer,
 from visinger_tpu_torch.training.train_state import create_train_state
 from visinger_tpu_torch.training.train_step import make_train_step
 
+import test_torch_port_cores  # noqa: F401  (shares the cores)
+
 VOCABS = (40, 96, 64)
 
 

@@ -28,6 +28,8 @@ from visinger_tpu_torch.data.record_store import RecordReader, RecordWriter
 from visinger_tpu_torch.utils.audio import pitch as ppitch
 from visinger_tpu_torch.utils.meters import AvgMeter, Timer
 
+import test_torch_port_cores  # noqa: F401  (shares the cores)
+
 # the corpus's items have 240-330 frames: a 700-frame budget makes batches
 # of 2 and a padded last batch
 CORPUS = dict(frame_buckets=(64, 128, 192, 256, 320, 384, 448, 512),

@@ -40,6 +40,8 @@ from visinger_tpu_torch.utils.text.token_encoder import TokenTextEncoder
 
 from test_g2p_ko import GOLDEN, LEXICAL_GOLDEN, NUMBER_GOLDEN
 
+import test_torch_port_cores  # noqa: F401  (shares the cores)
+
 SYLLABLES = list("나무소리가장하늘바다꽃잎국밥같이좋아")
 # the jamo every Hangul syllable decomposes into, plus the score markers
 JAMO = ([chr(c) for c in range(0x1100, 0x1113)]

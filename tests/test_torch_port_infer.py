@@ -33,6 +33,7 @@ from visinger_tpu_torch.config import tiny_config, visinger_csd
 from visinger_tpu_torch.infer import streaming as p_streaming
 from visinger_tpu_torch.infer.infer import VISingerInfer
 
+import test_torch_port_cores  # noqa: F401  (shares the cores)
 from test_torch_port_frontend import scores  # noqa: F401 (module fixture)
 from test_torch_port_modules import fill_params
 

@@ -26,6 +26,8 @@ from visinger_tpu_torch.ops.rel_attention import (MASK_VAL, dropout_keep,
                                                   rel_attention_plain)
 from visinger_tpu_torch.ops.tf32x3 import matmul_3xtf32
 
+import test_torch_port_cores  # noqa: F401  (shares the cores)
+
 ATOL = 1e-5
 T, C, HEADS, WINDOW = 37, 32, 2, 4      # T is no multiple of 8, 16 or 32
 DK = C // HEADS

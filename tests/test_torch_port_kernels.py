@@ -30,6 +30,8 @@ from visinger_tpu_torch.ops.rel_attention import (rel_attention,
 from visinger_tpu_torch.ops.wavenet_stack import (wavenet_stack,
                                                   wavenet_stack_plain)
 
+import test_torch_port_cores  # noqa: F401  (shares the cores)
+
 ATOL = 1e-5
 
 

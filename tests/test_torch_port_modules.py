@@ -30,6 +30,8 @@ from visinger_tpu_torch.modules.hifigan import HiFiGANGenerator
 from visinger_tpu_torch.ops.expand import expand_states
 from visinger_tpu_torch.ops.masking import prefix_lengths, sequence_mask
 
+import test_torch_port_cores  # noqa: F401  (shares the cores)
+
 ATOL = 1e-5
 
 

@@ -51,6 +51,8 @@ from visinger_tpu_torch.utils.audio import spk_embed as pspk
 from visinger_tpu_torch.utils.audio.io import load_wav, save_wav
 from visinger_tpu_torch.utils.midi import Note, write_midi
 
+import test_torch_port_cores  # noqa: F401  (shares the cores)
+
 SR, HOP = 24000, 300
 QUALITY_RTOL = 1e-9
 

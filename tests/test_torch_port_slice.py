@@ -11,9 +11,9 @@ peak, which the random weights put at ~1e-2 to ~1e-1 (measured error
 it is asserted equal outright: with this seed no logit lies within
 rounding of 0."""
 
+import ast
 import functools
 import os
-import re
 import subprocess
 import sys
 from pathlib import Path
@@ -40,6 +40,7 @@ from visinger_tpu_torch.training.train_step import (make_eval_step,
                                                     make_train_step)
 from visinger_tpu_torch.training.trainer import Trainer
 
+from test_torch_port_cores import subprocess_env  # shares the cores
 from test_torch_port_modules import fill_params
 
 VOCABS = (20, 30, 25)
@@ -217,115 +218,62 @@ def test_jax_init_params_tree_converts(slice_pair):
     assert max_err(st["logs_p"], ref["logs_p"]) < 1e-4
 
 
-_FORBIDDEN = re.compile(
-    r"^\s*(import|from)\s+(jax|flax|yaml|msgpack|visinger_tpu)\b"
-    r"|import_module",
-    re.M)
+_BLOCKED = ("jax", "flax", "yaml", "msgpack", "visinger_tpu")
+_DYNAMIC = ("__import__", "import_module")
+
+
+def _forbidden_imports(path: Path) -> list:
+    """The imports of a source that name a blocked package or load a module
+    by name: every ``import`` and ``from`` statement at any depth (module
+    level or inside a function), any ``importlib`` import, and any
+    ``__import__`` / ``import_module`` call."""
+    hits = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        elif isinstance(node, ast.Call):
+            f = node.func
+            name = f.attr if isinstance(f, ast.Attribute) else getattr(
+                f, "id", "")
+            if name in _DYNAMIC:
+                hits.append(f"line {node.lineno}: {name}()")
+            continue
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            if top in _BLOCKED or top == "importlib":
+                hits.append(f"line {node.lineno}: {name}")
+    return hits
 
 
 def test_port_imports_nothing_of_jax():
     """The port and chip_smoke.py import no jax, flax, yaml, msgpack or
-    visinger_tpu:
-    a CPU synthesis, a CPU training step (``training/``, ``ops/stft.py``), a
-    CPU ``VISingerInfer.synthesize`` of a written MIDI file (the front end,
-    ``utils/``, ``data/``), a 2-step CPU ``Trainer.fit`` on a corpus
-    ``chip_smoke.write_corpus`` binarizes (the data plane, checkpoints, the
-    eval step), and the data pipeline and render/test path (a synthetic
-    corpus, ``Binarizer``, ``Trainer.render_valid`` and ``Trainer.test``
-    with the quality metrics) succeed with those modules blocked, and no
-    source names them in an import."""
-    sources = sorted((REPO / "visinger_tpu_torch").rglob("*.py"))
-    sources.append(REPO / "chip_smoke.py")
-    for path in sources:
-        hits = _FORBIDDEN.findall(path.read_text())
+    visinger_tpu: no source names one in an import statement, at module
+    level or inside a function, and none imports a module by name
+    (``importlib``, ``__import__``), so every import is one of those
+    statements; and every module of the package, and chip_smoke.py, imports
+    with those packages blocked."""
+    pkg = REPO / "visinger_tpu_torch"
+    sources = sorted(pkg.rglob("*.py"))
+    for path in [*sources, REPO / "chip_smoke.py"]:
+        hits = _forbidden_imports(path)
         assert not hits, f"{path.relative_to(REPO)} imports {hits}"
-    script = """
-import sys
-for name in ("jax", "flax", "yaml", "visinger_tpu"):
+    modules = sorted(".".join(p.relative_to(REPO).with_suffix("").parts[
+        :-1 if p.name == "__init__.py" else None]) for p in sources)
+    assert len(modules) > 50 and "visinger_tpu_torch.run" in modules
+    script = f"""
+import importlib, sys
+for name in {_BLOCKED!r}:
     sys.modules[name] = None
-from visinger_tpu_torch.config import tiny_config
-from visinger_tpu_torch.data.synthetic import synthetic_batch
-from visinger_tpu_torch.infer.infer import TorchSynthesizer
-from visinger_tpu_torch.models.factory import build_model
-from visinger_tpu_torch.models.factory import build_models as port_build_models
-from visinger_tpu_torch.training.train_step import make_train_step
-cfg = tiny_config()
-raw = synthetic_batch(2, 8, 48, 20, 30, 25, 16, cfg.hop_size, seed=0)
-reqs = [{k: raw[k][i:i + 1] for k in
-         ("text_tokens", "note_pitch", "note_dur", "mel2ph")} for i in range(2)]
-model = build_model(cfg, 20, 30, 25, device="cpu")
-res = TorchSynthesizer(cfg, model, device="cpu").synthesize_batch(reqs)
-assert all(w.size > 0 for w in res.wavs)
-from visinger_tpu_torch.models.factory import build_models
-from visinger_tpu_torch.ops import stft
-from visinger_tpu_torch.training.train_state import create_train_state
-from visinger_tpu_torch.training.train_step import make_train_step
-model, disc = build_models(cfg, 20, 30, 25, device="cpu")
-raw.pop("spec")  # computed from the waveform instead
-state, metrics = make_train_step(cfg, model, disc, device="cpu")(
-    create_train_state(model, disc), raw)
-assert all(bool(v.isfinite()) for v in metrics.values())
-import json, os, tempfile
-from visinger_tpu_torch.data.binarizer import build_dur_map, build_pitch_map
-from visinger_tpu_torch.infer.infer import VISingerInfer
-from visinger_tpu_torch.utils.midi import Note, write_midi
-from visinger_tpu_torch.utils.text.token_encoder import TokenTextEncoder
-data_dir = tempfile.mkdtemp()
-jamo = [chr(c) for c in list(range(0x1100, 0x1113)) + list(range(0x1161, 0x1176))
-        + list(range(0x11A8, 0x11C3))]
-enc = TokenTextEncoder(jamo + ["<BOS>"])
-enc.store_to_file(os.path.join(data_dir, "phone_set.json"))
-maps = {"pitch_map": build_pitch_map(cfg.note_range), "dur_map": build_dur_map()}
-for name, m in maps.items():
-    with open(os.path.join(data_dir, name + ".json"), "w") as f:
-        json.dump(m, f)
-midi_fn = os.path.join(data_dir, "song.mid")
-notes = [Note(480 * i, 480 * i + 400, 60 + i, 80) for i in range(4)]
-write_midi(midi_fn, notes, lyrics=[(480 * i, s) for i, s in enumerate("나무소리")])
-model = build_model(cfg, len(enc), len(maps["pitch_map"]), len(maps["dur_map"]),
-                    device="cpu")
-wav, rtf = VISingerInfer(cfg, model, data_dir, device="cpu").synthesize(midi_fn)
-assert wav.size > 0 and rtf > 0
-import pathlib
-import chip_smoke
-from visinger_tpu_torch.training.trainer import Trainer
-corpus = pathlib.Path(tempfile.mkdtemp())
-chip_smoke.write_corpus(corpus, 4, 2, (8, 12), (40, 60), cfg.hop_size)
-state = Trainer(cfg.replace(binary_data_dir=str(corpus),
-                            work_dir=str(corpus / "work"), tb_log_interval=1,
-                            val_check_interval=2, num_sanity_val_steps=1,
-                            eval_max_batches=1),
-                device="cpu").fit(max_updates=2)
-assert state.step == 2
-assert (corpus / "work" / "model_ckpt_steps_2.pt").exists()
-from visinger_tpu_torch import run
-from visinger_tpu_torch.config import Args, tpu_run
-from visinger_tpu_torch.data import wav_processors
-from visinger_tpu_torch.data.binarizer import Binarizer
-from visinger_tpu_torch.data.dataset import build_dataset
-from visinger_tpu_torch.data.preprocess import Preprocessor
-from visinger_tpu_torch.data.synthetic_corpus import generate_corpus
-from visinger_tpu_torch.utils import plot
-from visinger_tpu_torch.utils.audio import cwt, loudness, spk_embed
-from visinger_tpu_torch.utils.text import processors
-pipe = pathlib.Path(tempfile.mkdtemp())
-pcfg = cfg.replace(
-    processed_data_dir=str(pipe / "p"), binary_data_dir=str(pipe / "b"),
-    work_dir=str(pipe / "w"), binarize_workers=1, save_codes=False,
-    binarization_args=Args(cfg.binarization_args, test_range=(0, 2),
-                           valid_range=(2, 3), train_range=(3, -1),
-                           min_text=2))
-generate_corpus(pcfg.processed_data_dir, n_items=4, notes_per_item=(2, 3))
-assert Binarizer(pcfg).process() == {"test": 2, "valid": 1, "train": 1}
-tr = Trainer(pcfg, device="cpu")
-st = tr.init_state()
-assert len(tr.render_valid(st, build_dataset(pcfg, "valid"), 1)) == 1
-results = tr.test(st)
-assert len(results) == 2 and all(r["mcd"] > 0 for r in results)
-print("isolated-ok")
+for mod in {modules!r} + ["chip_smoke"]:
+    importlib.import_module(mod)
+print("isolated-ok", len(sys.modules))
 """
-    env = dict(os.environ, PYTHONPATH=str(REPO))
-    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          env=subprocess_env(PYTHONPATH=str(REPO)),
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "isolated-ok" in proc.stdout

@@ -19,6 +19,8 @@ from visinger_tpu_torch.ops import cuda_build
 from visinger_tpu_torch.ops.tf32x3 import (matmul_3xtf32, matmul_tf32,
                                            split, tf32_round)
 
+import test_torch_port_cores  # noqa: F401  (shares the cores)
+
 TOL_3X = 2e-6     # of the float64 result's peak
 TOL_1X = 1e-4     # a single TF32 pass must exceed this
 

@@ -62,6 +62,7 @@ from visinger_tpu_torch.training.train_step import (TrainStep,
                                                     make_eval_step,
                                                     make_train_step)
 
+import test_torch_port_cores  # noqa: F401  (shares the cores)
 from test_torch_port_kernels import (LENGTHS, T_ATT, _attention_inputs,
                                      _pack_heads, load_port, max_err, t)
 from test_torch_port_modules import fill_params

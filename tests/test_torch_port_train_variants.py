@@ -52,6 +52,7 @@ from visinger_tpu_torch.training.train_step import (_grads, make_train_step,
                                                     remat)
 from visinger_tpu_torch.training import losses as PL
 
+from test_torch_port_cores import subprocess_env  # shares the cores
 from test_torch_port_kernels import max_err, t
 from test_torch_port_modules import fill_params
 
@@ -405,7 +406,8 @@ def test_warm_start_from_a_jax_msgpack(tmp_path):
         f"sd = load_jax_params({path!r})\n"
         "print(len(sd['model']), len(sd['disc']))\n")
     out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
+                         env=subprocess_env(), capture_output=True,
+                         text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == [str(len(ref.state_dict())),
                                   str(len(ref_disc.state_dict()))]

@@ -30,6 +30,7 @@ from visinger_tpu_torch.training.train_state import make_optimizers
 from visinger_tpu_torch.training.trainer import Trainer
 from visinger_tpu_torch.utils.midi import Note, write_midi
 
+import test_torch_port_cores  # noqa: F401  (shares the cores)
 from test_torch_port_data import build_corpus
 
 # 7 train items in batches of 2 under a 700-frame budget: 4 batches an epoch

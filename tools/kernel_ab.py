@@ -4,6 +4,16 @@ one CUDA card, in one process.
 
     python3 tools/kernel_ab.py                 # every variant below
     python3 tools/kernel_ab.py k2_tm128 mma_1x # some of them
+    python3 tools/kernel_ab.py --csrc old=build/old_csrc bf16_zero_start
+                                               # an earlier design too
+
+``--only TEXT`` keeps the cases whose name holds TEXT (``bf16``, ``K3``).
+``--csrc NAME=DIR`` adds a variant built from the sources in DIR (a copy
+of an earlier ``csrc/``, or only some of its files: the rest are the
+checkout's), e.g. ``git show <commit>:visinger_tpu_torch/csrc/
+rel_attention_bf16.cu > build/old_csrc/rel_attention_bf16.cu``.  A bf16
+library without ``rel_attention_bf16_fwd_scratch`` (the design before the
+score buffer) is called through its own forward signature.
 
 Each variant is the checkout's ``visinger_tpu_torch/csrc`` with a few text
 substitutions, built with ``nvcc`` into ``build/kernel_ab/<variant>/`` and
@@ -31,11 +41,22 @@ swapped in for the checkout's build between timings.  Two kinds:
   key/value tile), ``k1_one_tile`` (K1's key loop stops after one tile: the
   cost outside the loop), ``k1_no_merge`` (K1 stops after its key loop:
   no merge and no output), ``k1_launch_only`` (every K1 block returns at
-  once: the launch and the empty grid).
+  once: the launch and the empty grid); for the bf16 builds,
+  ``bf16_zero_start`` (every bf16 mma starts from zero and is added to its
+  sum in float32, as the 3xTF32 kernels do, instead of accumulating in the
+  mma) and ``bf16_k1_rows16`` (K1-bf16 with 16-row tiles at every shape);
+  their ablations ``bf16_k1_no_exp`` (no exp in K1-bf16's sum sweep and a
+  product for P's division), ``bf16_k1_launch_only`` (every K1-bf16 block
+  returns after choosing its tile), ``bf16_k3_no_exp`` (no exp and no
+  division for p in K3-bf16's row and key passes), ``bf16_k3_no_emb`` (no
+  emb partials in the row pass).
 
 Cases: K1 at [4, 640, 192] (dropout 0 and 0.1) and [4, 192, 192], K3
 (dropout 0.1) at [4, 640, 192] and [4, 192, 192], K2 at x [4, 640, 192]
-with L=4 and L=16, ragged lengths as in ``chip_smoke.py``.
+with L=4 and L=16, K1-bf16 and K3-bf16 at [4, 640, 192] (dropout 0 and
+0.1), [4, 192, 192] and K1-bf16 at the MIDI phrase [1, 1280, 192], ragged
+lengths as in ``chip_smoke.py``.  Only the libraries whose sources a
+variant changes are built for it.
 Device times (``chip_smoke.device_ms``, median of 30) in turns: the
 checkout's kernels, each variant, the variants in reverse, the checkout's
 again.  Then a profiler table of the checkout's kernels per case.  Prints
@@ -55,6 +76,17 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 R, W, H = "rel_attention.cu", "wavenet_stack.cu", "tf32x3.cuh"
+RB = "rel_attention_bf16.cu"
+_BF16_MMA = """      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}"""
+_BF16_MMA_ZERO = """      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\\n"
+      : "=f"(z[0]), "=f"(z[1]), "=f"(z[2]), "=f"(z[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+  for (int e = 0; e < 4; ++e) d[e] += z[e];
+}"""
 _THREE = """  float d[4];
   mma_zero(d, a.lo, b.hi);
   mma(d, a.hi, b.lo);
@@ -139,12 +171,49 @@ VARIANTS = {
     "k1_generic": [(R, "dk == 96 ? launch_fwd", "dk == 0 ? launch_fwd")],
     "k1_regs255": [(R, "512 / K1Tile<RG, KS>::NT)", "1)")],
     "mma_nv": [(H, 'asm volatile(\n      "mma.sync', 'asm(\n      "mma.sync')],
+    "bf16_zero_start": [
+        (RB, "                                    uint32_t b0, uint32_t b1) {\n"
+             "  asm volatile(",
+         "                                    uint32_t b0, uint32_t b1) {\n"
+         "  float z[4];\n  asm volatile("),
+        (RB, _BF16_MMA, _BF16_MMA_ZERO),
+    ],
+    "bf16_k1_rows16": [(RB, "  if ((T + 31) / 32 * (C / dk) * B >= n_sm &&",
+                        "  if (false &&")],
+    "bf16_k1_no_exp": [
+        (RB, "      a.x = expf(a.x - m_row[0]);\n      a.y = expf(a.y - m_row[0]);\n"
+             "      a.z = expf(a.z - m_row[1]);\n      a.w = expf(a.w - m_row[1]);",
+         "      a.x -= m_row[0];\n      a.y -= m_row[0];\n"
+         "      a.z -= m_row[1];\n      a.w -= m_row[1];"),
+        (RB, "        float pe = p[n][e] / l_row[rr];",
+         "        float pe = p[n][e] * l_row[rr];"),
+    ],
+    "bf16_k1_launch_only": [
+        (RB, "  const bool valid = q0 + S::ROWS <= len;    // every row below len\n",
+         "  const bool valid = q0 + S::ROWS <= len;    // every row below len\n"
+         "  if (len >= 0) return;\n")],
+    "bf16_k3_no_exp": [
+        (RB, "        const float p = expf(x - m_row[rr]) / l_row[rr];",
+         "        const float p = x - m_row[rr] * l_row[rr];"),
+        (RB, "          const float p = expf(x - R[il * 2]) / R[il * 2 + 1];",
+         "          const float p = x - R[il * 2] * R[il * 2 + 1];"),
+    ],
+    "bf16_k3_no_emb": [
+        (RB, "    for (int r = 0; r < BT; ++r) {\n      sk = fmaf(Bp",
+         "    for (int r = 0; r < 0; ++r) {\n      sk = fmaf(Bp")],
 }
 
 
-def write_variant(name: str, csrc: Path, out: Path) -> None:
+def write_variant(name: str, csrc: Path, out: Path, sources=None) -> None:
+    """The checkout's sources with a variant's substitutions, or with the
+    files of directory ``sources`` in their place, under ``out``."""
     out.mkdir(parents=True, exist_ok=True)
     for f in csrc.iterdir():
+        if sources is not None:
+            own = sources / f.name
+            (out / f.name).write_text((own if own.exists() else f)
+                                      .read_text())
+            continue
         text = f.read_text()
         for fname, old, new in VARIANTS[name]:
             if f.name == fname:
@@ -155,14 +224,50 @@ def write_variant(name: str, csrc: Path, out: Path) -> None:
         (out / f.name).write_text(text)
 
 
-def build(names, cuda_build):
-    """Build every variant's libraries in parallel -> {variant: {kernel:
-    CDLL}}; prints each build's register and spill lines."""
-    procs = {}
-    for v in names:
+class OldBf16Forward:
+    """A bf16 library from before the score buffer, whose forward takes no
+    scratch argument, behind the current forward signature (the wrapper
+    sets ``argtypes`` on the functions it calls, so these are Python
+    functions with their own attributes)."""
+
+    def __init__(self, lib):
+        self._lib = lib
+        old = lib.rel_attention_bf16_fwd
+        old.restype = ctypes.c_int
+        old.argtypes = ([ctypes.c_void_p] * 6
+                        + [ctypes.c_void_p, ctypes.c_uint, ctypes.c_float,
+                           ctypes.c_int]
+                        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                        + [ctypes.c_float, ctypes.c_void_p])
+
+        def fwd(*args):  # ..., out, stats, scratch, B, T, C, dk, w, scale, s
+            return old(*args[:12], *args[13:])
+
+        def fwd_scratch(*_):
+            return 0
+
+        self.rel_attention_bf16_fwd = fwd
+        self.rel_attention_bf16_fwd_scratch = fwd_scratch
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+
+def build(names, dirs, cuda_build, checkout):
+    """Build every variant's changed libraries in parallel -> {variant:
+    {kernel: library}}, the unchanged ones the checkout's; prints each
+    build's register and spill lines.  ``dirs`` maps the ``--csrc``
+    variants to their source directories."""
+    procs, libs = {}, {}
+    for v in [*names, *dirs]:
         out = ROOT / "build" / "kernel_ab" / v
-        write_variant(v, cuda_build.CSRC, out)
+        write_variant(v, cuda_build.CSRC, out, dirs.get(v))
+        headers = [h.name for h in cuda_build.CSRC.glob("*.cuh")]
+        libs[v] = dict(checkout)
         for n in cuda_build.KERNELS:
+            if all((out / f).read_text() == (cuda_build.CSRC / f).read_text()
+                   for f in (f"{n}.cu", *headers)):
+                continue
             lib = out / f"lib{n}.so"
             cmd = [cuda_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                    "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
@@ -170,7 +275,6 @@ def build(names, cuda_build):
             procs[(v, n)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                               stderr=subprocess.STDOUT,
                                               text=True), lib)
-    libs = {}
     for (v, n), (proc, lib) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
@@ -178,7 +282,11 @@ def build(names, cuda_build):
         print(json.dumps({"build": v, "kernel": n, "ptxas": [
             ln.strip() for ln in log.splitlines()
             if "registers" in ln or "spill" in ln]}), flush=True)
-        libs.setdefault(v, {})[n] = ctypes.CDLL(str(lib))
+        cdll = ctypes.CDLL(str(lib))
+        if n == "rel_attention_bf16" and not hasattr(
+                cdll, "rel_attention_bf16_fwd_scratch"):
+            cdll = OldBf16Forward(cdll)
+        libs[v][n] = cdll
     return libs
 
 
@@ -193,19 +301,31 @@ def main() -> int:
     from visinger_tpu_torch.ops import rel_attention as ra
     from visinger_tpu_torch.ops import wavenet_stack as ws
 
-    names = sys.argv[1:] or list(VARIANTS)
-    for n in names:
-        if n not in VARIANTS:
-            print(f"kernel_ab: unknown variant {n}", file=sys.stderr)
+    names, dirs, argv, only = [], {}, sys.argv[1:], ""
+    while argv:
+        a = argv.pop(0)
+        if a == "--csrc":
+            name, _, path = argv.pop(0).partition("=")
+            dirs[name] = ROOT / path
+        elif a == "--only":
+            only = argv.pop(0)
+        elif a in VARIANTS:
+            names.append(a)
+        else:
+            print(f"kernel_ab: unknown variant {a}", file=sys.stderr)
             return 2
+    if not names and not dirs:
+        names = list(VARIANTS)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cuda_build.build_all()
-    libs = {"checkout": {n: cuda_build.load(n) for n in cuda_build.KERNELS}}
-    libs.update(build(names, cuda_build))
+    checkout = {n: cuda_build.load(n) for n in cuda_build.KERNELS}
+    libs = {"checkout": checkout}
+    libs.update(build(names, dirs, cuda_build, checkout))
+    names = [*names, *dirs]
 
     def use(v):
         cuda_build._libs.clear()
@@ -238,6 +358,29 @@ def main() -> int:
         cases.append((f"K3 [4, {t}, 192] dropout 0.1",
                       lambda a=(q, k, v, ek, ev, lens, g, out, stats), kw=kw:
                       ra.rel_attention_bwd(*a, **kw), ref))
+    for t, lengths, c in ((640, [640, 600, 517, 333], 192),
+                          (192, [192, 180, 151, 97], 192),
+                          (1280, [1237], 192)):
+        q, k, v, ek, ev, lens = cs.bf16_inputs(torch, gen, t, c, lengths,
+                                               dev)
+        g = torch.randn(len(lengths), t, c, generator=gen).to(dev).bfloat16()
+        for rate in (0.0, 0.1):
+            if rate and t != 640:
+                continue
+            kw = dict(window=4, scale=96 ** -0.5, seed=seed, rate=rate)
+            shape = f"[{len(lengths)}, {t}, {c}] dropout {rate}"
+            ref = ra.rel_attention_plain(q, k, v, ek, ev, lens, **kw)
+            cases.append((f"K1-bf16 {shape}",
+                          lambda a=(q, k, v, ek, ev, lens), kw=kw:
+                          ra.rel_attention_fwd(*a, **kw)[0], (ref,)))
+            if t == 1280:
+                continue
+            use("checkout")
+            out, stats = ra.rel_attention_fwd(q, k, v, ek, ev, lens, **kw)
+            ref = ra.rel_attention_bwd_plain(q, k, v, ek, ev, lens, g, **kw)
+            cases.append((f"K3-bf16 {shape}",
+                          lambda a=(q, k, v, ek, ev, lens, g, out, stats),
+                          kw=kw: ra.rel_attention_bwd(*a, **kw), ref))
     for n_layers in (4, 16):
         args = cs.stack_inputs(torch, gen, dev, [640, 600, 517, 333], 640,
                                192, n_layers, 5)
@@ -245,6 +388,7 @@ def main() -> int:
                       lambda a=args: ws.wavenet_stack_fwd(*a),
                       (ws.wavenet_stack_plain(*args),)))
 
+    cases = [c for c in cases if only in c[0]]
     order = ["checkout", *names]
     for case, fn, ref in cases:
         row = {"case": case}
@@ -253,7 +397,10 @@ def main() -> int:
             a, b = fn(), fn()
             torch.cuda.synchronize()
             a, b = (a,) if torch.is_tensor(a) else a, (b,) if torch.is_tensor(b) else b
-            row[v] = {"max_abs_err": max(float((x - r).abs().max())
+            row[v] = {"max_abs_err": max(float((x.float() - r.float())
+                                               .abs().max())
+                                         for x, r in zip(a, ref)),
+                      "err_of_peak": max(cs.bf16_err(x, r)
                                          for x, r in zip(a, ref)),
                       "same_bits_twice": all(torch.equal(x, y)
                                              for x, y in zip(a, b)),

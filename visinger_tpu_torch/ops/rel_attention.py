@@ -23,6 +23,10 @@ P to bf16 before P·V and the band term, the output in bf16; in the backward
 g in bf16, the dropped P in bf16 for dv and d emb_rel_v, every other product
 and dS in float32, dq/dk/dv in bf16.  The emb tables, the row statistics and
 the emb gradients stay float32.  The plain versions take the same dtypes.
+The bf16 forward keeps each block's scores in shared memory, or, for a T too
+long for it, in a scratch the wrapper allocates
+(``rel_attention_bf16_fwd_scratch`` gives its size, 0 at the model's
+shapes).
 
 ``rel_attention`` is the entry point, differentiable: on CPU tensors it runs
 ``rel_attention_plain`` under ordinary autograd; on CUDA tensors its forward
@@ -222,18 +226,34 @@ def rel_attention_fwd(q, k, v, emb_rel_k, emb_rel_v, lengths, *,
         "q": q, "k": k, "v": v, "emb_rel_k": emb_rel_k,
         "emb_rel_v": emb_rel_v}, lengths, seed, rate, window)
     bf16 = q.dtype == torch.bfloat16
-    fn = (cuda_build.load("rel_attention_bf16").rel_attention_bf16_fwd
-          if bf16 else cuda_build.load("rel_attention").rel_attention_fwd)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + _DROP_TYPES
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_void_p])
     out = torch.empty_like(q)
     stats = torch.empty(b, c // dk, t, 2, device=q.device)
+    # the bf16 build takes a scratch for its score buffer when T is too long
+    # for shared memory (its size is 0 otherwise)
+    scratch, buf = [], None
+    if bf16:
+        lib = cuda_build.load("rel_attention_bf16")
+        size = lib.rel_attention_bf16_fwd_scratch
+        size.restype = ctypes.c_longlong
+        size.argtypes = [ctypes.c_int] * 5
+        n_scratch = size(b, t, c, dk, window)
+        if n_scratch < 0:
+            raise ValueError(f"rel_attention_fwd: head width {dk} must be a "
+                             f"multiple of 8, at most 128")
+        if n_scratch > 0:
+            buf = torch.empty(n_scratch, device=q.device)
+        scratch = [None if buf is None else buf.data_ptr()]
+        fn = lib.rel_attention_bf16_fwd
+    else:
+        fn = cuda_build.load("rel_attention").rel_attention_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + _DROP_TYPES
+                   + [ctypes.c_void_p] * (2 + len(scratch))
+                   + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), emb_rel_k.data_ptr(),
              emb_rel_v.data_ptr(), lengths.data_ptr(), *_drop_args(seed, rate),
-             out.data_ptr(), stats.data_ptr(), b, t, c, dk, window,
+             out.data_ptr(), stats.data_ptr(), *scratch, b, t, c, dk, window,
              float(scale), stream)
     cuda_build.check(err, "rel_attention_fwd")
     if bf16:
