@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port of VISinger on one CUDA card: the GAN
 training step (the main path), synthesis, MIDI-to-waveform serving, the
-trainer, and the command line's whole drive from a synthetic corpus to a
-tested voice.
+trainer, the command line's whole drive from a synthetic corpus to a
+tested voice, and the serving export.
 
     python3 chip_smoke.py              # the check (one card)
     python3 chip_smoke.py --profile    # also write torch.profiler summaries
@@ -115,8 +115,19 @@ Phases, each printing a line; any failure raises and exits nonzero:
      weights and draws (within TOL_VARIANT_REL), remat's gradients against
      none's with dropout on, and the peak memory and step time of each
      remat policy at B=4, T=640;
- 13. a ``kernels`` JSON line (K1, K2, K3 and the bf16 builds of K1 and
-     K3), then the final ``{"ok": true, ...}`` line.
+ 13. the serving export (phase ``export``): ``run export --device cuda``
+     of a checkpoint of seeded ``visinger_csd`` weights into a float32
+     artifact of buckets 96x320 and 192x640 and, with the ``soak_r5``
+     recipe (bf16), of bucket 192x640; a subprocess that cannot import
+     jax, flax, visinger_tpu or the port's models, modules, config,
+     training, data and ``infer.infer`` loads them and serves 3 and 2
+     scores (K1 16 and K2 4 launches a float32 call, K1-bf16 16 and K2 4
+     a bf16 call), each waveform within 1e-4 of its peak of the live path
+     on the card; export seconds per bucket, load seconds, bytes, and ms
+     per call and audio-s/s in turns with the live path;
+ 14. a ``kernels`` JSON line (K1, K2, K3 and the bf16 builds of K1 and
+     K3; K1, K2 and K1-bf16 with their launches in the export phase),
+     then the final ``{"ok": true, ...}`` line.
 
 It imports the port only (no JAX) and exits nonzero, printing no result,
 without a CUDA device or outside a checkout of the repository.
@@ -898,12 +909,14 @@ def requests_from(batch, n):
             for i in range(n)]
 
 
-def flow_model(torch, cfg, *vocabs):
-    """The generator from seed 0 on the CPU, its flow's ``post`` weights
-    (zero at init) set nonzero so the flow is not the identity."""
+def flow_model(torch, cfg, *vocabs, model=None):
+    """The generator from seed 0 on the CPU (or ``model``), its flow's
+    ``post`` weights (zero at init) set nonzero so the flow is not the
+    identity."""
     from visinger_tpu_torch.models.factory import build_model
 
-    model = build_model(cfg, *vocabs, device="cpu", seed=0)
+    if model is None:
+        model = build_model(cfg, *vocabs, device="cpu", seed=0)
     gen = torch.Generator(device="cpu").manual_seed(3)
     with torch.no_grad():
         for i in range(cfg.flow_n_flows):
@@ -2142,6 +2155,304 @@ def train_variants(torch, ra, ws, dev, data_dir: Path) -> dict:
     return rows
 
 
+# the serving export (phase ``export``): two float32 buckets, both among the
+# configured ones, and the bf16 recipe's largest
+EXPORT_BUCKETS = "96x320,192x640"
+EXPORT_BF16_BUCKET = "192x640"
+# (tokens, frames, seed) of each artifact's scores: one in the small bucket,
+# one in the large, the small one again with a second seed
+EXPORT_SCORES = {"f32": ((80, 300, 0), (180, 600, 0), (80, 300, 1)),
+                 "bf16": ((180, 600, 0), (80, 300, 1))}
+EXPORT_TIMED_CALLS = 10     # a turn's timed calls, after 3 to warm up
+# the modules an artifact's loader must run without
+EXPORT_BLOCKED = ("jax", "flax", "visinger_tpu", "visinger_tpu_torch.models",
+                  "visinger_tpu_torch.modules", "visinger_tpu_torch.config",
+                  "visinger_tpu_torch.training", "visinger_tpu_torch.data",
+                  "visinger_tpu_torch.infer.infer")
+# the loader's process: loads each artifact once it is written, serves its
+# scores, and prints the launches of each call, its load seconds and the
+# waveforms' paths
+EXPORT_LOADER = """
+import json, os, sys, time
+for name in {blocked!r}:
+    sys.modules[name] = None
+import numpy as np
+import torch
+from visinger_tpu_torch.infer.export import ExportedSynthesizer
+from visinger_tpu_torch.ops import rel_attention as ra
+from visinger_tpu_torch.ops import wavenet_stack as ws
+
+# as the live path it is held against: float32 products, no TF32
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+job = json.loads(sys.argv[1])
+out = {{"modules": sorted(m for m, mod in sys.modules.items()
+                         if mod is not None
+                         and m.startswith("visinger_tpu_torch."))}}
+for name, spec in job.items():
+    t0 = time.perf_counter()
+    while not os.path.exists(spec["ready"]):     # written after the export
+        if time.perf_counter() - t0 > 600:
+            sys.exit(f"no artifact in {{spec['dir']}}")
+        time.sleep(0.1)
+    t0 = time.perf_counter()
+    syn = ExportedSynthesizer(spec["dir"], device=spec["device"])
+    for bucket in syn.buckets:
+        syn.program(bucket)
+    load_s = time.perf_counter() - t0
+    calls = []
+    for i, (npz, seed) in enumerate(spec["scores"]):
+        score = np.load(npz)
+        ra.launches = ra.launches_bf16 = ws.launches = 0
+        wav = syn(*(score[f"arr_{{k}}"] for k in range(4)), seed=seed)
+        calls.append({{"rel_attention_fwd": ra.launches,
+                       "rel_attention_bf16_fwd": ra.launches_bf16,
+                       "wavenet_stack_fwd": ws.launches,
+                       "wav": npz.replace(".npz", f".{{name}}.wav.npy")}})
+        np.save(calls[-1]["wav"], wav)
+    out[name] = {{"load_s": load_s, "calls": calls}}
+print(json.dumps(out))
+""".format(blocked=EXPORT_BLOCKED)
+
+
+def export_phase(torch, ra, ws, dev, root: Path) -> dict:
+    """The serving export at full width (phase ``export``): a checkpoint of
+    a fresh ``visinger_csd`` train state (seeded weights, the flow's
+    ``post`` nonzero) written by ``training/checkpoint.py``, then ``run
+    export --device cuda`` of it into a float32 artifact of two buckets
+    (``EXPORT_BUCKETS``) and, with the ``soak_r5`` recipe (bf16 compute),
+    a one-bucket artifact.  A subprocess that cannot import jax, flax,
+    visinger_tpu or the port's models, modules, config, training, data and
+    ``infer.infer`` loads both (the float32 one while the bf16 one is
+    exported) and serves ``EXPORT_SCORES``; each call must launch K1 16
+    and K2 4 times (float32) or K1-bf16 16 and K2 4 times (bf16), and each
+    waveform must be within TOL_CPU_REL of its peak of the live path on
+    the card (``infer_prior`` + ``decode_frames`` of the same weights,
+    padded inputs and eps).  Prints export seconds per bucket, load
+    seconds, the artifacts' bytes, and ms per call and audio-s/s of each
+    artifact's longest score in turns with the live path (live, artifact,
+    artifact, live).  Returns the subprocess's launches summed over its
+    calls."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from visinger_tpu_torch import run
+    from visinger_tpu_torch.config import soak_r5, visinger_csd
+    from visinger_tpu_torch.data.synthetic import synthetic_batch
+    from visinger_tpu_torch.infer.export import ExportedSynthesizer
+    from visinger_tpu_torch.models.factory import build_model, build_models
+    from visinger_tpu_torch.training.checkpoint import save_checkpoint
+    from visinger_tpu_torch.training.train_state import create_train_state
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    data_dir = root / "binary"
+    data_dir.mkdir(parents=True)
+    # vocabularies of VOCABS' sizes: what ``run export`` reads of the data
+    (data_dir / "phone_set.json").write_text(json.dumps(
+        [f"ph{i}" for i in range(VOCABS[0])]))
+    for name, n in (("pitch_map", VOCABS[1]), ("dur_map", VOCABS[2])):
+        (data_dir / f"{name}.json").write_text(json.dumps(
+            {str(i): i for i in range(n)}))
+    cfgs = {"f32": visinger_csd(), "bf16": soak_r5()}
+    cfgs = {k: c.replace(work_dir=str(root / "work"),
+                         binary_data_dir=str(data_dir))
+            for k, c in cfgs.items()}
+    hop, sr = cfgs["f32"].hop_size, cfgs["f32"].sample_rate
+    model, disc = build_models(cfgs["f32"], *VOCABS, device="cpu", seed=0)
+    flow_model(torch, cfgs["f32"], model=model)
+    save_checkpoint(str(root / "work"), create_train_state(model, disc, 0))
+    del disc
+
+    # the scores, written before the loader's process starts
+    jobs = {}
+    for name, scores in EXPORT_SCORES.items():
+        jobs[name] = {"dir": str(root / name), "device": dev.type,
+                      "ready": str(root / f"{name}.ready"), "scores": []}
+        for i, (n, t, seed) in enumerate(scores):
+            # a score drawn by its shape: the same shape, the same score
+            raw = synthetic_batch(1, n, t, *VOCABS, hop_size=hop, seed=n + t)
+            k = int(raw["text_lengths"][0])
+            npz = str(root / f"score_{name}_{i}.npz")
+            np.savez(npz, *(raw[key][0, :k] for key in (
+                "text_tokens", "note_pitch", "note_dur")), raw["mel2ph"][0])
+            jobs[name]["scores"].append((npz, seed))
+
+    lives, syns, timed = {}, {}, {}
+
+    def run_live(name, inputs):
+        with torch.no_grad():
+            z_p, mask = lives[name].infer_prior(
+                *inputs[:4], spk_id=inputs[4], eps=inputs[5])
+            return lives[name].decode_frames(z_p, mask, spk_id=inputs[4])
+
+    def turn_ms(fn) -> list:
+        for _ in range(3):
+            fn()
+        ms = []
+        for _ in range(EXPORT_TIMED_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return ms
+
+    def prepare_timing():
+        """The live models on the card, and the padded inputs of each
+        artifact's longest score."""
+        lives["f32"] = model.to(dev).eval()
+        lives["bf16"] = build_model(cfgs["bf16"], *VOCABS, device="cpu")
+        lives["bf16"].load_state_dict(model.state_dict())
+        lives["bf16"] = lives["bf16"].to(dev).eval()
+        for name, job in jobs.items():
+            syns[name] = ExportedSynthesizer(job["dir"], device=dev)
+            npz, seed = max(job["scores"],
+                            key=lambda sc: len(np.load(sc[0])["arr_3"]))
+            score = np.load(npz)
+            timed[name] = syns[name].pad(
+                *(score[f"arr_{k}"] for k in range(4)), seed=seed)
+
+    # run export on the card, each bucket's trace and save timed; the
+    # loader's process starts once the float32 artifact is written and
+    # loads it while this process exports the bf16 one
+    clocked, real = [], (torch.export.export, torch.export.save)
+
+    def clock(fn, kind):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            clocked.append((kind, time.perf_counter() - t0))
+            return out
+        return wrapper
+
+    metas, export_s, loader = {}, {}, None
+    torch.export.export = clock(real[0], "trace")
+    torch.export.save = clock(real[1], "save")
+    try:    # a failure stops the loader's process too
+        for name, buckets in (("f32", EXPORT_BUCKETS),
+                              ("bf16", EXPORT_BF16_BUCKET)):
+            cfg_fn = root / f"{name}.json"
+            cfg_fn.write_text(json.dumps(cfgs[name].to_dict()))
+            clocked.clear()
+            t0 = time.perf_counter()
+            metas[name] = run.main([
+                "export", "--config", str(cfg_fn), "--device", dev.type,
+                "--out_dir", str(root / name), "--batch_size", "1",
+                "--buckets", buckets])
+            export_s[name] = {
+                "command_s": time.perf_counter() - t0,
+                "per_bucket": [{"bucket": b, "trace_s": tr[1],
+                                "save_s": sv[1]}
+                               for b, tr, sv in zip(buckets.split(","),
+                                                    clocked[0::2],
+                                                    clocked[1::2])]}
+            Path(jobs[name]["ready"]).touch()
+            if loader is None:
+                t_loader = time.perf_counter()
+                loader = subprocess.Popen(
+                    [sys.executable, "-c", EXPORT_LOADER, json.dumps(jobs)],
+                    cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)
+        torch.export.export, torch.export.save = real
+        prepare_timing()
+        # this process loads the programs it times while the loader's
+        # process runs (a thread: loading holds the interpreter, waiting on
+        # a process does not)
+        with ThreadPoolExecutor(1) as pool:
+            preload = pool.submit(lambda: [syns[name].program(
+                (timed[name][0].shape[1], timed[name][3].shape[1]))
+                for name in jobs])
+            stdout, stderr = loader.communicate(timeout=600)
+            loader_s = time.perf_counter() - t_loader
+            preload.result()
+    except BaseException:
+        if loader is not None and loader.poll() is None:
+            loader.kill()
+            loader.communicate()
+        raise
+    finally:
+        torch.export.export, torch.export.save = real
+    check(loader.returncode == 0, f"export loader failed:\n{stderr}")
+    served = json.loads(stdout.strip().splitlines()[-1])
+    leaked = [m for m in served["modules"] for b in EXPORT_BLOCKED
+              if m == b or m.startswith(b + ".")]
+    check(not leaked, f"the loader imported {leaked}")
+    want = {"f32": ["rel_attention", "wavenet_stack"],
+            "bf16": ["rel_attention_bf16", "wavenet_stack"]}
+    for name, meta in metas.items():
+        check(meta["device"] == dev.type and meta["kernels"] == want[name]
+              and meta["compute_dtype"] == cfgs[name].compute_dtype,
+              f"export {name}: meta {meta}")
+    sizes = {name: {p.name: p.stat().st_size for p in (root / name).iterdir()}
+             for name in metas}
+
+    # each waveform against the live path on the card
+    per_call = {"f32": {"rel_attention_fwd": 16, "rel_attention_bf16_fwd": 0,
+                        "wavenet_stack_fwd": 4},
+                "bf16": {"rel_attention_fwd": 0, "rel_attention_bf16_fwd": 16,
+                         "wavenet_stack_fwd": 4}}
+    launches = {"rel_attention_fwd": 0, "rel_attention_bf16_fwd": 0,
+                "wavenet_stack_fwd": 0}
+    rows, timing = {}, {}
+    for name, job in jobs.items():
+        syn = syns[name]
+        rows[name] = []
+        for (npz, seed), call in zip(job["scores"], served[name]["calls"]):
+            for key, n in per_call[name].items():
+                check(call[key] == n, f"export {name}: {key} {call[key]} "
+                      f"launches in a call, not {n}")
+                launches[key] += call[key]
+            score = np.load(npz)
+            arrays = [score[f"arr_{k}"] for k in range(4)]
+            inputs = syn.pad(*arrays, seed=seed)
+            ref = run_live(name, inputs)[0, :len(arrays[3]) * hop]
+            ref = ref.float().cpu()
+            got = torch.from_numpy(np.load(call["wav"]))
+            peak = float(ref.abs().max())
+            err = float((got - ref).abs().max())
+            check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+                  f"export {name}: wav {tuple(got.shape)}")
+            check(peak > 0 and err <= TOL_CPU_REL * peak,
+                  f"export {name}: artifact vs live max abs err {err} > "
+                  f"{TOL_CPU_REL} x peak {peak}")
+            rows[name].append({"tokens": len(arrays[0]),
+                               "frames": len(arrays[3]), "seed": seed,
+                               "bucket": list(syn.bucket_for(
+                                   len(arrays[0]), len(arrays[3]))),
+                               "max_abs_err": err, "peak": peak,
+                               "launches": {k: call[k] for k in
+                                            per_call[name]}})
+        # ms per call at the longest score's padded inputs, in turns
+        inputs = timed[name]
+        ms = {"live": [], "artifact": []}
+        for who in ("live", "artifact", "artifact", "live"):
+            ms[who] += turn_ms(
+                (lambda: run_live(name, inputs)) if who == "live"
+                else (lambda: syn.synthesize(*inputs)))
+        frames = int((inputs[3] > 0).sum())
+        audio_s = frames * hop / sr
+        medians = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+        timing[name] = {
+            "bucket": [inputs[0].shape[1], inputs[3].shape[1]],
+            "frames": frames, "ms_each": ms,
+            **{f"{k}_ms": v for k, v in medians.items()},
+            **{f"{k}_audio_s_per_s": audio_s / (v / 1e3)
+               for k, v in medians.items()}}
+    lives.clear()
+    syns.clear()
+    shutil.rmtree(root, ignore_errors=True)
+    phase("export", seconds=time.perf_counter() - t_phase,
+          export_s=export_s, loader_process_s=loader_s,
+          load_s={k: served[k]["load_s"] for k in jobs},
+          artifact_bytes=sizes, calls=rows, timing=timing,
+          launches=launches, tol=TOL_CPU_REL)
+    return launches
+
+
 def ptxas_functions(log: str) -> list:
     """Each kernel's registers and spill bytes from ``nvcc -Xptxas -v``."""
     rows, cur = [], None
@@ -2288,6 +2599,7 @@ def main() -> int:
                             train_peak, args.profile)
     train_variants(torch, ra, ws, dev, bf16_root / soak_r5().binary_data_dir)
     shutil.rmtree(bf16_root, ignore_errors=True)
+    export_counts = export_phase(torch, ra, ws, dev, ROOT / "build" / "export")
 
     k1 = k1_rows[0]  # the frame-rate shape: 12 of the 18 layers per step
     k1_token = k1_rows[1]
@@ -2315,6 +2627,7 @@ def main() -> int:
          "midi_launches": midi_counts["rel_attention_fwd"],
          "pipeline_launches": pipeline_counts["rel_attention_fwd"],
          "trainer_launches": trainer_counts["rel_attention_fwd"],
+         "export_launches": export_counts["rel_attention_fwd"],
          "midi_phrase_shape": k1_phrase["shape"],
          "midi_phrase_ms": k1_phrase["ms"],
          "midi_phrase_plain_ms": k1_phrase["plain_ms"],
@@ -2355,6 +2668,7 @@ def main() -> int:
          "midi_launches": midi_counts["wavenet_stack_fwd"],
          "pipeline_launches": pipeline_counts["wavenet_stack_fwd"],
          "trainer_launches": trainer_counts["wavenet_stack_fwd"],
+         "export_launches": export_counts["wavenet_stack_fwd"],
          "window_shape": k2_window["shape"], "window_ms": k2_window["ms"],
          "window_plain_ms": k2_window["plain_ms"],
          "window_bound_ms": k2_window["bound_ms"],
@@ -2388,6 +2702,8 @@ def main() -> int:
             # device ms at every other shape, dropout off
             "shapes_ms": {r["shape"]: r["ms"] for r in rows
                           if r["dropout"] == 0.0}})
+    next(k for k in kernels if k["name"] == "rel_attention_bf16_fwd")[
+        "export_launches"] = export_counts["rel_attention_bf16_fwd"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

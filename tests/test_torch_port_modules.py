@@ -248,11 +248,11 @@ _JAX_CODE_DEFAULTS = {"slice_ref_padded": False, "disc_s_base": 16,
 
 
 @pytest.mark.parametrize("which", ["visinger_csd", "tiny", "tpu_run",
-                                   "soak_r5"])
+                                   "soak_r5", "parity_run"])
 def test_recipe_matches_yaml(which):
     if which == "tiny":
         port, ref = port_config.tiny_config(), jax_tiny_config()
-    elif which in ("tpu_run", "soak_r5"):
+    elif which in ("tpu_run", "soak_r5", "parity_run"):
         port = getattr(port_config, which)()
         ref = load_config(str(Path(__file__).resolve().parents[1]
                               / "configs" / f"{which}.yaml"))

@@ -32,6 +32,7 @@ from visinger_tpu_torch import run
 from visinger_tpu_torch.config import tiny_config
 from visinger_tpu_torch.convert import params_from_jax
 from visinger_tpu_torch.data.synthetic import synthetic_batch
+from visinger_tpu_torch.infer.export import ExportedSynthesizer
 from visinger_tpu_torch.infer.infer import TorchSynthesizer, VISingerInfer
 from visinger_tpu_torch.infer.streaming import StreamingSynthesizer
 from visinger_tpu_torch.models.factory import build_model
@@ -301,6 +302,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path,
         make_eval_step(tiny_config(), model)
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(tiny_config(), str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ExportedSynthesizer(str(tmp_path))
     monkeypatch.chdir(tmp_path)     # the CLI writes ./checkpoints/config.json
     with pytest.raises(RuntimeError, match="CUDA"):
         run.main(["train"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run.main(["export"])

@@ -415,8 +415,24 @@ def soak_r5() -> Config:
     )
 
 
+def parity_run() -> Config:
+    """``configs/parity_run.yaml``: the ``tpu_run`` demo (its corpus,
+    binarization and batching) with the reference's validation semantics
+    (``deterministic_eval``: dropout off, fixed eval draws), for the
+    loss-curve and quality comparison with the upstream model."""
+    return tpu_run().replace(
+        work_dir="checkpoints/parity_run",
+        logs_clamp=5.0,
+        deterministic_eval=True,
+        tb_log_interval=25,
+        val_check_interval=250,
+        max_updates=3600,
+        render_valid=False,
+    )
+
+
 RECIPES = {"visinger_csd": visinger_csd, "tpu_run": tpu_run,
-           "soak_r5": soak_r5}
+           "soak_r5": soak_r5, "parity_run": parity_run}
 
 
 def tiny_config() -> Config:

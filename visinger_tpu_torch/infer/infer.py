@@ -37,6 +37,7 @@ from visinger_tpu_torch.convert import params_from_jax
 from visinger_tpu_torch.data.binarizer import build_dur_codec
 from visinger_tpu_torch.data.preprocess import (midi_to_encoding,
                                                 second_pass, split_syllables)
+from visinger_tpu_torch.infer.export import prior_noise
 from visinger_tpu_torch.infer.streaming import StreamingSynthesizer
 from visinger_tpu_torch.models.factory import build_model, resolve_device
 from visinger_tpu_torch.utils.audio.align import get_note2dur
@@ -244,9 +245,9 @@ class VISingerInfer:
         return batch, t
 
     def prior_noise(self, t_pad: int, seed: int) -> torch.Tensor:
-        """A score's prior noise eps [1, t_pad, H], drawn on the CPU."""
-        gen = torch.Generator().manual_seed(seed)
-        return torch.randn(1, t_pad, self.cfg.hidden_size, generator=gen)
+        """A score's prior noise eps [1, t_pad, H], drawn on the CPU (the
+        rule an exported artifact's loader follows too)."""
+        return prior_noise(t_pad, self.cfg.hidden_size, seed)
 
     @torch.no_grad()
     def _infer(self, batch: dict, eps: torch.Tensor) -> torch.Tensor:

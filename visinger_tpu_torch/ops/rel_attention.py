@@ -28,11 +28,16 @@ long for it, in a scratch the wrapper allocates
 (``rel_attention_bf16_fwd_scratch`` gives its size, 0 at the model's
 shapes).
 
-``rel_attention`` is the entry point, differentiable: on CPU tensors it runs
-``rel_attention_plain`` under ordinary autograd; on CUDA tensors its forward
-is K1 and its backward K3 (``_RelAttention``), or it raises.  ``launches``
-and ``bwd_launches`` count the float32 kernels' launches,
-``launches_bf16`` and ``bwd_launches_bf16`` the bf16 builds'.
+K1 and K3 are registered ``torch.library`` ops,
+``visinger_torch::rel_attention_fwd`` (-> out, stats) and
+``visinger_torch::rel_attention_bwd``, so ``torch.export`` keeps them as
+nodes of a program.  The device picks the implementation: on CUDA tensors
+the kernel (or it raises), on CPU tensors the plain version; no other
+device has one.  The forward op's gradient is the backward op, given the
+forward's out and stats.  ``rel_attention`` is the entry point,
+differentiable.  ``launches`` and ``bwd_launches`` count the float32
+kernels' launches, ``launches_bf16`` and ``bwd_launches_bf16`` the bf16
+builds'.
 """
 
 from __future__ import annotations
@@ -155,12 +160,15 @@ def rel_attention_bwd_plain(q, k, v, emb_rel_k, emb_rel_v, lengths, g, *,
     """K3's function in plain PyTorch: autograd of ``rel_attention_plain``
     with the same mask.  Returns (dq, dk, dv, d emb_rel_k, d emb_rel_v), dq,
     dk, dv in the inputs' dtype (g is taken in the output's, q's, dtype)."""
-    with torch.enable_grad():
-        ins = [a.detach().requires_grad_(True)
-               for a in (q, k, v, emb_rel_k, emb_rel_v)]
-        out = rel_attention_plain(*ins, lengths, window=window, scale=scale,
-                                  seed=seed, rate=rate)
-        return torch.autograd.grad(out, ins, g.to(q.dtype))
+    def fwd(*ins):
+        return rel_attention_plain(*ins, lengths, window=window, scale=scale,
+                                   seed=seed, rate=rate)
+
+    # ``torch.func.vjp``, not ``torch.autograd.grad``: it also works inside
+    # the K3 op's CPU implementation, which runs below autograd
+    _, vjp = torch.func.vjp(fwd, *(a.detach() for a in (q, k, v, emb_rel_k,
+                                                        emb_rel_v)))
+    return vjp(g.to(q.dtype))
 
 
 # the tensors that take q's dtype (float32 or bf16); the rest are float32
@@ -342,29 +350,85 @@ def _bwd_bf16(q, k, v, emb_rel_k, emb_rel_v, lengths, g, stats, window,
     return dq, dk_, dv, dek, dev
 
 
-class _RelAttention(torch.autograd.Function):
-    """Forward K1, backward K3 (CUDA tensors)."""
+# --- the registered ops: each decorated body is the CPU implementation -------
 
-    @staticmethod
-    def forward(ctx, q, k, v, emb_rel_k, emb_rel_v, lengths, seed, window,
-                scale, rate):
-        out, stats = rel_attention_fwd(q, k, v, emb_rel_k, emb_rel_v,
-                                       lengths, window=window, scale=scale,
-                                       seed=seed, rate=rate)
-        ctx.save_for_backward(q, k, v, emb_rel_k, emb_rel_v, lengths, seed,
-                              out, stats)
-        ctx.cfg = (window, scale, rate)
-        return out
+_ARGS = ("Tensor q, Tensor k, Tensor v, Tensor emb_rel_k, Tensor emb_rel_v, "
+         "Tensor lengths")
+_CFG = "Tensor? seed, int window, float scale, float rate"
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, ek, ev, lengths, seed, out, stats = ctx.saved_tensors
-        window, scale, rate = ctx.cfg
-        grads = rel_attention_bwd(q, k, v, ek, ev, lengths,
-                                  g.to(q.dtype).contiguous(), out, stats,
-                                  window=window, scale=scale, seed=seed,
-                                  rate=rate)
-        return (*grads, None, None, None, None, None)
+
+@torch.library.custom_op(
+    "visinger_torch::rel_attention_fwd", mutates_args=(), device_types="cpu",
+    schema=f"({_ARGS}, {_CFG}) -> (Tensor, Tensor)")
+def rel_attention_fwd_op(q, k, v, emb_rel_k, emb_rel_v, lengths, seed,
+                         window, scale, rate):
+    """K1 as an op: (out in q's dtype, stats [B, H, T, 2] float32)."""
+    return rel_attention_plain(q, k, v, emb_rel_k, emb_rel_v, lengths,
+                               window=window, scale=scale, seed=seed,
+                               rate=rate, with_stats=True)
+
+
+@rel_attention_fwd_op.register_kernel("cuda")
+def _fwd_cuda(q, k, v, emb_rel_k, emb_rel_v, lengths, seed, window, scale,
+              rate):
+    return rel_attention_fwd(q, k, v, emb_rel_k, emb_rel_v, lengths,
+                             window=window, scale=scale, seed=seed, rate=rate)
+
+
+@rel_attention_fwd_op.register_fake
+def _fwd_fake(q, k, v, emb_rel_k, emb_rel_v, lengths, seed, window, scale,
+              rate):
+    b, t, c = q.shape
+    heads = c // emb_rel_k.shape[1]
+    return (torch.empty_like(q),
+            q.new_empty((b, heads, t, 2), dtype=torch.float32))
+
+
+@torch.library.custom_op(
+    "visinger_torch::rel_attention_bwd", mutates_args=(), device_types="cpu",
+    schema=f"({_ARGS}, Tensor g, Tensor out, Tensor stats, {_CFG}) -> "
+           "(Tensor, Tensor, Tensor, Tensor, Tensor)")
+def rel_attention_bwd_op(q, k, v, emb_rel_k, emb_rel_v, lengths, g, out,
+                         stats, seed, window, scale, rate):
+    """K3 as an op: (dq, dk, dv, d emb_rel_k, d emb_rel_v)."""
+    return tuple(rel_attention_bwd_plain(
+        q, k, v, emb_rel_k, emb_rel_v, lengths, g, window=window,
+        scale=scale, seed=seed, rate=rate))
+
+
+@rel_attention_bwd_op.register_kernel("cuda")
+def _bwd_cuda(q, k, v, emb_rel_k, emb_rel_v, lengths, g, out, stats, seed,
+              window, scale, rate):
+    return rel_attention_bwd(q, k, v, emb_rel_k, emb_rel_v, lengths, g, out,
+                             stats, window=window, scale=scale, seed=seed,
+                             rate=rate)
+
+
+@rel_attention_bwd_op.register_fake
+def _bwd_fake(q, k, v, emb_rel_k, emb_rel_v, lengths, g, out, stats, seed,
+              window, scale, rate):
+    return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+            torch.empty_like(emb_rel_k), torch.empty_like(emb_rel_v))
+
+
+def _fwd_setup(ctx, inputs, output):
+    q, k, v, ek, ev, lengths, seed, window, scale, rate = inputs
+    out, stats = output
+    ctx.mark_non_differentiable(stats)
+    ctx.save_for_backward(q, k, v, ek, ev, lengths, seed, out, stats)
+    ctx.cfg = (window, scale, rate)
+
+
+def _fwd_backward(ctx, g, _g_stats):
+    q, k, v, ek, ev, lengths, seed, out, stats = ctx.saved_tensors
+    window, scale, rate = ctx.cfg
+    grads = rel_attention_bwd_op(q, k, v, ek, ev, lengths,
+                                 g.to(q.dtype).contiguous(), out, stats, seed,
+                                 window, scale, rate)
+    return (*grads, None, None, None, None, None)
+
+
+rel_attention_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
 
 
 def rel_attention(q, k, v, emb_rel_k, emb_rel_v, mask, *, window: int,
@@ -376,10 +440,7 @@ def rel_attention(q, k, v, emb_rel_k, emb_rel_v, mask, *, window: int,
     ``dropout_rate`` > 0."""
     if dropout_rate > 0 and seed is None:
         raise ValueError("rel_attention: dropout needs a seed")
-    lengths = prefix_lengths(mask)
-    if q.device.type == "cpu":
-        return rel_attention_plain(q, k, v, emb_rel_k, emb_rel_v, lengths,
-                                   window=window, scale=scale, seed=seed,
-                                   rate=dropout_rate)
-    return _RelAttention.apply(q, k, v, emb_rel_k, emb_rel_v, lengths, seed,
-                               window, scale, float(dropout_rate))
+    out, _stats = rel_attention_fwd_op(
+        q, k, v, emb_rel_k, emb_rel_v, prefix_lengths(mask), seed, window,
+        float(scale), float(dropout_rate))
+    return out

@@ -9,12 +9,13 @@ float32-accurate 3xTF32 (``csrc/tf32x3.cuh``).  On the H100 the function
 is bound by operations (~2·B·T·(L·(K+1)·C·2C − C·C) flops — the last
 layer's 1x1 is C -> C — against ~1.5 MB of weights per layer).
 
-``wavenet_stack`` is the entry point, differentiable: on a CPU tensor it runs
-``wavenet_stack_plain`` under ordinary autograd; on a CUDA tensor its forward
-launches the kernel (or raises) and its backward differentiates
-``wavenet_stack_plain`` recomputed from the saved inputs
-(``_WaveNetStack``).  ``launches`` counts stack calls on the card (each
-runs 2·L kernel launches).
+K2 is the registered ``torch.library`` op ``visinger_torch::wavenet_stack``:
+on a CUDA tensor it launches the kernel (or raises), on a CPU tensor it runs
+``wavenet_stack_plain``; no other device has an implementation.
+``wavenet_stack`` is the entry point, differentiable: the op's backward
+differentiates ``wavenet_stack_plain`` recomputed from the saved inputs.
+``launches`` counts stack calls on the card (each runs 2·L kernel
+launches).
 """
 
 from __future__ import annotations
@@ -103,30 +104,47 @@ def wavenet_stack_fwd(x, w_in, b_in, w_rs, b_rs, g_bias, mask):
     return out
 
 
-class _WaveNetStack(torch.autograd.Function):
-    """Forward K2; backward: autograd of the plain version, recomputed."""
+@torch.library.custom_op(
+    "visinger_torch::wavenet_stack", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor w_in, Tensor b_in, Tensor w_rs, Tensor b_rs, "
+           "Tensor? g_bias, Tensor mask) -> Tensor")
+def wavenet_stack_op(x, w_in, b_in, w_rs, b_rs, g_bias, mask):
+    """K2 as an op: the skip sum [B, T, C], contiguous."""
+    return wavenet_stack_plain(x, w_in, b_in, w_rs, b_rs, g_bias,
+                               mask).contiguous()
 
-    @staticmethod
-    def forward(ctx, x, w_in, b_in, w_rs, b_rs, g_bias, mask):
-        ctx.save_for_backward(x, w_in, b_in, w_rs, b_rs, g_bias, mask)
-        return wavenet_stack_fwd(x, w_in, b_in, w_rs, b_rs, g_bias, mask)
 
-    @staticmethod
-    def backward(ctx, g):
-        x, w_in, b_in, w_rs, b_rs, g_bias, mask = ctx.saved_tensors
-        ins = [None if a is None else a.detach().requires_grad_(need)
-               for a, need in zip((x, w_in, b_in, w_rs, b_rs, g_bias),
-                                  ctx.needs_input_grad)]
-        with torch.enable_grad():
-            out = wavenet_stack_plain(*ins, mask)
-            wanted = [a for a in ins if a is not None and a.requires_grad]
-            grads = iter(torch.autograd.grad(out, wanted, g))
-        return (*(next(grads) if a is not None and a.requires_grad else None
-                  for a in ins), None)
+@wavenet_stack_op.register_kernel("cuda")
+def _fwd_cuda(x, w_in, b_in, w_rs, b_rs, g_bias, mask):
+    return wavenet_stack_fwd(x, w_in, b_in, w_rs, b_rs, g_bias, mask)
+
+
+@wavenet_stack_op.register_fake
+def _fwd_fake(x, w_in, b_in, w_rs, b_rs, g_bias, mask):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def _setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, g):
+    """Autograd of the plain version, recomputed from the saved inputs."""
+    x, w_in, b_in, w_rs, b_rs, g_bias, mask = ctx.saved_tensors
+    ins = [None if a is None else a.detach().requires_grad_(need)
+           for a, need in zip((x, w_in, b_in, w_rs, b_rs, g_bias),
+                              ctx.needs_input_grad)]
+    with torch.enable_grad():
+        out = wavenet_stack_plain(*ins, mask)
+        wanted = [a for a in ins if a is not None and a.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, g))
+    return (*(next(grads) if a is not None and a.requires_grad else None
+              for a in ins), None)
+
+
+wavenet_stack_op.register_autograd(_backward, setup_context=_setup)
 
 
 def wavenet_stack(x, w_in, b_in, w_rs, b_rs, g_bias, mask):
     """Fused WaveNet stack; arguments as in ``wavenet_stack_plain``."""
-    if x.device.type == "cpu":
-        return wavenet_stack_plain(x, w_in, b_in, w_rs, b_rs, g_bias, mask)
-    return _WaveNetStack.apply(x, w_in, b_in, w_rs, b_rs, g_bias, mask)
+    return wavenet_stack_op(x, w_in, b_in, w_rs, b_rs, g_bias, mask)

@@ -12,6 +12,8 @@ test split and MIDI inference.
                                               --out out.wav [--stream]
   python -m visinger_tpu_torch.run infer      --exp_name x --midi_dir songs/
                                               --out_dir gen/
+  python -m visinger_tpu_torch.run export     --exp_name x --out_dir art/
+                                              [--buckets 96x320,192x640]
 
 ``synth-data`` writes a synthetic corpus into ``processed_data_dir``
 (``synth_n_items`` songs of ``synth_notes`` notes); ``preprocess`` turns a
@@ -19,20 +21,23 @@ raw CSD layout under ``raw_data_dir`` (``midi/*.mid``, ``wav/*.wav``,
 optional ``text/*.txt``) into the same layout; ``binarize`` writes the
 records of ``binary_data_dir`` from it.  These three are numpy on the host.
 ``train`` (then the test split with ``test_after_train``), ``test``,
-``validate`` and ``infer`` run the model on ``--device`` (default ``cuda``;
-``cpu`` runs the kernels' plain versions).
+``validate``, ``infer`` and ``export`` run the model on ``--device``
+(default ``cuda``; ``cpu`` runs the kernels' plain versions); ``export``
+writes a serving artifact for that device type (``infer/export.py``).
 
-``--config`` is a recipe name (``visinger_csd``, the default, or
-``tpu_run``) or a JSON file of ``Config`` fields (``Config.to_dict``);
-``--hparams`` overrides fields, with dotted keys into the argument dicts.
+``--config`` is a recipe name (``visinger_csd``, the default, ``tpu_run``,
+``soak_r5`` or ``parity_run``) or a JSON file of ``Config`` fields
+(``Config.to_dict``); ``--hparams`` overrides fields, with dotted keys
+into the argument dicts.
 With ``--exp_name`` the work dir is ``checkpoints/<exp_name>``, else the
-config's ``work_dir``.  Every command but ``test``, ``validate`` and
-``infer`` writes the merged config there as ``config.json``, and the next
-launch of the experiment (``--exp_name``) reads it back (``--reset``
-starts from ``--config`` again); the read-only commands leave it as it is,
-so their one-off ``--hparams`` do not change later training.  ``--remove``
-asks, then deletes the experiment's work dir first.  ``train`` copies its
-terminal output to ``<work_dir>/terminal_logs/``.
+config's ``work_dir``.  Every command but ``test``, ``validate``,
+``infer`` and ``export`` writes the merged config there as
+``config.json``, and the next launch of the experiment (``--exp_name``)
+reads it back (``--reset`` starts from ``--config`` again); the read-only
+commands leave it as it is, so their one-off ``--hparams`` do not change
+later training.  ``--remove`` asks, then deletes the experiment's work dir
+first.  ``train`` copies its terminal output to
+``<work_dir>/terminal_logs/``.
 """
 
 from __future__ import annotations
@@ -213,6 +218,16 @@ def cmd_validate(args):
     return tr.validate(state, max_batches=cfg.eval_max_batches or None)
 
 
+def vocab_sizes(data_dir: str) -> list[int]:
+    """The phone, pitch and duration vocabulary sizes of a binarized data
+    dir."""
+    sizes = []
+    for name in ("phone_set", "pitch_map", "dur_map"):
+        with open(f"{data_dir}/{name}.json") as f:
+            sizes.append(len(json.load(f)))
+    return sizes
+
+
 def cmd_infer(args):
     """MIDI -> wav with the newest checkpoint's generator."""
     from visinger_tpu_torch.infer.infer import VISingerInfer
@@ -230,12 +245,8 @@ def cmd_infer(args):
     if ckpt is None:
         raise SystemExit(f"no checkpoint in {cfg.work_dir}")
     data_dir = cfg.binary_data_dir
-    vocabs = []
-    for name in ("phone_set", "pitch_map", "dur_map"):
-        with open(f"{data_dir}/{name}.json") as f:
-            vocabs.append(len(json.load(f)))
     saved = load_checkpoint(ckpt)
-    model = build_model(cfg, *vocabs, device="cpu")
+    model = build_model(cfg, *vocab_sizes(data_dir), device="cpu")
     model.load_state_dict(saved["model"], strict=True)
     print(f"| loaded {ckpt} (step {saved['step']})")
     infer = VISingerInfer(cfg, model, data_dir, device=args.device)
@@ -266,10 +277,40 @@ def cmd_infer(args):
     return rtf
 
 
+def cmd_export(args):
+    """Export the newest checkpoint's generator as a serving artifact
+    (``infer/export.py``: one program per bucket, one weights file, meta);
+    -> the meta dict."""
+    from visinger_tpu_torch.infer.export import export_synthesis
+    from visinger_tpu_torch.models.factory import build_model, resolve_device
+    from visinger_tpu_torch.training.checkpoint import (latest_checkpoint,
+                                                        load_checkpoint)
+
+    cfg = resolve_config(args, persist=False)
+    device = resolve_device(args.device)
+    ckpt = latest_checkpoint(cfg.work_dir)
+    if ckpt is None:
+        raise SystemExit(f"no checkpoint in {cfg.work_dir}")
+    saved = load_checkpoint(ckpt)   # the generator's weights are all it reads
+    model = build_model(cfg, *vocab_sizes(cfg.binary_data_dir), device="cpu")
+    model.load_state_dict(saved["model"], strict=True)
+    print(f"| exporting {ckpt} (step {saved['step']})")
+    buckets = None
+    if args.buckets:  # "96x320,192x640" -> [(96, 320), (192, 640)]
+        buckets = [tuple(int(v) for v in part.split("x"))
+                   for part in args.buckets.split(",") if part]
+    meta = export_synthesis(cfg, model, args.out_dir,
+                            batch_size=args.batch_size, buckets=buckets,
+                            device=device)
+    print(f"| wrote artifact to {args.out_dir}: {json.dumps(meta)}")
+    return meta
+
+
 COMMANDS = {"synth-data": cmd_synth_data, "preprocess": cmd_preprocess,
             "binarize": cmd_binarize, "train": cmd_train, "test": cmd_test,
-            "validate": cmd_validate, "infer": cmd_infer}
-MODEL_COMMANDS = ("train", "test", "validate", "infer")
+            "validate": cmd_validate, "infer": cmd_infer,
+            "export": cmd_export}
+MODEL_COMMANDS = ("train", "test", "validate", "infer", "export")
 
 
 def main(argv=None):
@@ -306,6 +347,13 @@ def main(argv=None):
             sp.add_argument("--stream", action="store_true",
                             help="decode window by window "
                                  "(stream_infer: true)")
+        if name == "export":
+            sp.add_argument("--out_dir", default="exported_model")
+            sp.add_argument("--batch_size", type=int, default=1)
+            sp.add_argument("--buckets", default="",
+                            help="'<tokens>x<frames>,...' shapes to export "
+                                 "into one artifact (default: the largest "
+                                 "configured bucket)")
         sp.set_defaults(fn=fn)
     args = p.parse_args(argv)
     return args.fn(args)
