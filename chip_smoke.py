@@ -2,7 +2,8 @@
 """Drive the PyTorch/H100 port of VISinger on one CUDA card: the GAN
 training step (the main path), synthesis, MIDI-to-waveform serving, the
 trainer, the command line's whole drive from a synthetic corpus to a
-tested voice, and the serving export.
+tested voice, the serving export, and the scale-out (data-parallel
+training and time-sharded synthesis over ranks of ``torch.distributed``).
 
     python3 chip_smoke.py              # the check (one card)
     python3 chip_smoke.py --profile    # also write torch.profiler summaries
@@ -22,15 +23,17 @@ Phases, each printing a line; any failure raises and exits nonzero:
      row's softmax max and sum (which K3 reads), at the frame-rate shape
      [4, 640, 192], the token-rate shape [4, 192, 192], a ragged
      [4, 637, 192] (lengths 637, 600, 64, 1), head widths 64 and 128
-     (K1's generic build), and the longest MIDI phrase [1, 1280, 192]
-     (length 1237), 2 heads; beside its times,
+     (K1's generic build), the longest MIDI phrase [1, 1280, 192]
+     (length 1237) and a data-parallel rank's rows [2, 640, 192], 2
+     heads; beside its times,
      ``scaled_dot_product_attention`` on the same q, k, v with the band
      bias and mask as an additive float mask (``sdpa_partial_ms``, a
      yardstick: it lacks the band-column term); then with dropout 0.1
      against the plain version with the same seed, its keep rate and a
      second seed's different mask;
-  4. K3 (attention backward) against autograd of the plain version at both
-     shapes, dropout off and 0.1, with a random g; a second run on the same
+  4. K3 (attention backward) against autograd of the plain version at the
+     frame, token and data-parallel rank's shapes, dropout off and 0.1,
+     with a random g; a second run on the same
      inputs must give bit-identical gradients (beside it
      ``scaled_dot_product_attention`` forward and backward as a yardstick);
      then the bf16 builds of K1 and K3 (phases ``k1_bf16``, ``k3_bf16``)
@@ -46,8 +49,9 @@ Phases, each printing a line; any failure raises and exits nonzero:
      bounds at the bf16 dense tensor-core rate;
   5. K2 (WaveNet stack) at the flow shape x [4, 640, 192], L=4, at the
      posterior shape, L=16, where the gradients of its autograd function are
-     also held against plain autograd, and at the streaming window
-     [1, 366, 192], L=4 (length 336);
+     also held against plain autograd, at the streaming window
+     [1, 366, 192], L=4 (length 336), and at a rank's window of
+     time-sharded synthesis [1, 695, 192], L=4 (length 652);
      kernel / plain device times (CUDA events, median of 30, each call
      queued behind a sleep kernel so the wrapper's host time is not in it)
      and per-call times (from an idle card, host time included, the method
@@ -125,9 +129,24 @@ Phases, each printing a line; any failure raises and exits nonzero:
      a bf16 call), each waveform within 1e-4 of its peak of the live path
      on the card; export seconds per bucket, load seconds, bytes, and ms
      per call and audio-s/s in turns with the live path;
- 14. a ``kernels`` JSON line (K1, K2, K3 and the bf16 builds of K1 and
-     K3; K1, K2 and K1-bf16 with their launches in the export phase),
-     then the final ``{"ok": true, ...}`` line.
+ 14. the scale-out (phase ``scale_out``, full width, float32): the
+     training phase's step (B=4, T=640, dropout 0, given draws) under an
+     NCCL group of world size 1 against the bare step; 2 gloo ranks on the
+     card (spawned after the build), 2 rows each: losses, metrics and
+     ``gnorm_g`` within TOL_SO_REL of the 1-process step, gradients summed
+     over the ranks within TOL_GRAD_REL of their peaks, the parameters the
+     same bits on both ranks (launches per rank and step K1 18, K3 18,
+     K2 5); ``Trainer.fit`` on both ranks, 4 steps and resumed to 6, one
+     checkpoint set written by rank 0; ``VISingerInfer`` with ``sp_infer``
+     on a 1280-frame score and the 24 s score within TOL_CPU_REL of their
+     peaks of the single-device waveform (per rank and phrase K1 16, K2
+     4), and the loop over both ranks' pieces in one process; ms of both
+     kinds (not a claim: the ranks share one card);
+     ``__graft_entry_torch__.entry()`` and ``dryrun_multichip(1)`` on NCCL;
+ 15. a ``kernels`` JSON line (K1, K2, K3 and the bf16 builds of K1 and
+     K3; K1, K2 and K1-bf16 with their launches in the export phase; K1,
+     K3 and K2 with ``scale_out_launches``, per rank of a DP step and of an
+     SP call), then the final ``{"ok": true, ...}`` line.
 
 It imports the port only (no JAX) and exits nonzero, printing no result,
 without a CUDA device or outside a checkout of the repository.
@@ -386,7 +405,9 @@ def check_rel_attention(torch, ra, dev):
             ("dk 64", 640, 128, [640, 600, 517, 333]),
             ("dk 128", 100, 256, [100, 37]),
             # the longest MIDI phrase: one score at the largest frame bucket
-            ("midi phrase", 1280, 192, [1237])):
+            ("midi phrase", 1280, 192, [1237]),
+            # a data-parallel rank's rows of the training batch (scale_out)
+            ("dp rank", 640, 192, [640, 600])):
         dk = c // heads
         q, k, v = (torch.randn(len(lengths), t, c, generator=gen).to(dev)
                    for _ in range(3))
@@ -420,9 +441,9 @@ def check_rel_attention(torch, ra, dev):
     return rows
 
 
-def attention_inputs(torch, gen, t, dev, c=192, heads=2, window=4):
+def attention_inputs(torch, gen, t, dev, c=192, heads=2, window=4, b=4):
     dk = c // heads
-    q, k, v = (torch.randn(4, t, c, generator=gen).to(dev) for _ in range(3))
+    q, k, v = (torch.randn(b, t, c, generator=gen).to(dev) for _ in range(3))
     ek, ev = (torch.randn(2 * window + 1, dk, generator=gen).mul(
         dk ** -0.5).to(dev) for _ in range(2))
     return q, k, v, ek, ev
@@ -486,9 +507,11 @@ def check_rel_attention_bwd(torch, ra, dev):
     seed = torch.tensor([2024], dtype=torch.int32, device=dev)
     rows = []
     for label, t, lengths in (("frame", 640, [640, 600, 517, 333]),
-                              ("token", 192, [192, 180, 151, 97])):
-        q, k, v, ek, ev = attention_inputs(torch, gen, t, dev)
-        g = torch.randn(4, t, c, generator=gen).to(dev)
+                              ("token", 192, [192, 180, 151, 97]),
+                              ("dp rank", 640, [640, 600])):
+        n_b = len(lengths)
+        q, k, v, ek, ev = attention_inputs(torch, gen, t, dev, b=n_b)
+        g = torch.randn(n_b, t, c, generator=gen).to(dev)
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         for rate in (0.0, 0.1):
             kw = dict(window=window, scale=dk ** -0.5, seed=seed, rate=rate)
@@ -515,7 +538,7 @@ def check_rel_attention_bwd(torch, ra, dev):
                 lambda: ra.rel_attention_bwd_plain(q, k, v, ek, ev, lens, g,
                                                    **kw))
             flops, nbytes = k3_work(lengths, t, c, heads, window)
-            row = {"shape": f"[4, {t}, {c}] {label}", "dropout": rate,
+            row = {"shape": f"[{n_b}, {t}, {c}] {label}", "dropout": rate,
                    "max_abs_err": max(errs.values()), "errs": errs,
                    "bit_identical_rerun": True, **times,
                    **bounds(flops, nbytes),
@@ -862,23 +885,8 @@ def train_card_vs_cpu(torch, dev):
     (loss_c, grad_c), (loss_r, grad_r) = got["cuda"], got["cpu"]
     loss_err = {k: abs(loss_c[k] - loss_r[k]) / max(abs(loss_r[k]), 1e-12)
                 for k in loss_r}
-    gmax = max(float(r.abs().max()) for r in grad_r if r is not None)
-    grad_err, zero_noise, failures = {}, {}, []
-    for name, a, r in zip(names, grad_c, grad_r):
-        if (a is None) != (r is None):
-            failures.append(f"grad {name}: reached on one device only")
-            continue
-        if r is None:
-            continue
-        if not bool(torch.isfinite(a).all()):
-            failures.append(f"grad {name}: non-finite on the card")
-        if name.endswith(ZERO_GRAD):
-            zero_noise[name] = max(float(a.abs().max()),
-                                   float(r.abs().max())) / gmax
-        else:
-            peak = float(r.abs().max())
-            grad_err[name] = (float((a - r).abs().max()) / peak
-                              if peak > 0 else float(a.abs().max()))
+    grad_err, zero_noise, gmax, failures = grad_errors(torch, names, grad_c,
+                                                       grad_r)
     worst = sorted(grad_err, key=grad_err.get, reverse=True)[:5]
     phase("train_card_vs_cpu", frames=t, losses=loss_r,
           loss_rel_err=loss_err, max_loss_rel_err=max(loss_err.values()),
@@ -893,11 +901,37 @@ def train_card_vs_cpu(torch, dev):
           zero_grad_tol=TOL_ZERO_GRAD)
     failures += [f"loss {k}: rel err {e} > {TOL_LOSS_REL}"
                  for k, e in loss_err.items() if e > TOL_LOSS_REL]
+    check(not failures, "card vs CPU training: " + "; ".join(failures[:5]))
+
+
+def grad_errors(torch, names, got, ref):
+    """Each gradient tensor's max abs error against ``ref`` as a share of
+    the reference's peak; the attention key bias's (``ZERO_GRAD``, zero in
+    exact arithmetic) size as a share of the largest gradient.  -> (errors,
+    zero-gradient noise, largest gradient, failures against TOL_GRAD_REL
+    and TOL_ZERO_GRAD)."""
+    gmax = max(float(r.abs().max()) for r in ref if r is not None)
+    grad_err, zero_noise, failures = {}, {}, []
+    for name, a, r in zip(names, got, ref):
+        if (a is None) != (r is None):
+            failures.append(f"grad {name}: reached on one side only")
+            continue
+        if r is None:
+            continue
+        if not bool(torch.isfinite(a).all()):
+            failures.append(f"grad {name}: non-finite")
+        if name.endswith(ZERO_GRAD):
+            zero_noise[name] = max(float(a.abs().max()),
+                                   float(r.abs().max())) / gmax
+        else:
+            peak = float(r.abs().max())
+            grad_err[name] = (float((a - r).abs().max()) / peak
+                              if peak > 0 else float(a.abs().max()))
     failures += [f"grad {n}: max abs err {e} of its peak > {TOL_GRAD_REL}"
                  for n, e in grad_err.items() if e > TOL_GRAD_REL]
     failures += [f"grad {n}: {e} of the largest gradient > {TOL_ZERO_GRAD}"
                  for n, e in zero_noise.items() if e > TOL_ZERO_GRAD]
-    check(not failures, "card vs CPU training: " + "; ".join(failures[:5]))
+    return grad_err, zero_noise, gmax, failures
 
 
 def requests_from(batch, n):
@@ -1018,11 +1052,12 @@ LONG_SECONDS = 24.0
 SHORT_SECONDS = 2.0
 
 
-def write_scores(data_dir: Path, cfg, seed: int) -> dict:
+def write_scores(data_dir: Path, cfg, seed: int, extra=()) -> dict:
     """MIDI files with Hangul lyrics (pitches, durations and rests drawn from
     ``seed``; 120 bpm, 480 ticks a beat) and the phone set, pitch map and
     duration map of a binarized data dir.  -> {"batch": [6 paths], "long":
-    path, "short": path}."""
+    path, "short": path} and a path for each (name, seconds) of
+    ``extra``, drawn after them."""
     import numpy as np
 
     from visinger_tpu_torch.data.binarizer import (build_dur_map,
@@ -1053,10 +1088,12 @@ def write_scores(data_dir: Path, cfg, seed: int) -> dict:
         write_midi(path, notes, ticks_per_beat=480, lyrics=lyrics)
         return path
 
-    return {"batch": [score(f"song{i}", s)
-                      for i, s in enumerate(SCORE_SECONDS)],
-            "long": score("long", LONG_SECONDS),
-            "short": score("short", SHORT_SECONDS)}
+    out = {"batch": [score(f"song{i}", s)
+                     for i, s in enumerate(SCORE_SECONDS)],
+           "long": score("long", LONG_SECONDS),
+           "short": score("short", SHORT_SECONDS)}
+    out.update((name, score(name, s)) for name, s in extra)
+    return out
 
 
 def midi_infer(torch, ra, ws, dev, data_dir: Path, profile: bool):
@@ -2453,6 +2490,418 @@ def export_phase(torch, ra, ws, dev, root: Path) -> dict:
     return launches
 
 
+# phase scale_out: the data-parallel step, Trainer.fit and time-sharded
+# synthesis over 2 ranks of gloo on the one card (NCCL refuses two ranks on
+# one GPU; gloo takes CUDA tensors in all_reduce), NCCL at world size 1
+SO_WORLD = 2
+SO_BATCH, SO_TOKENS, SO_FRAMES = 4, 192, 640   # the training phase's batch
+SO_TIMED_STEPS = 3
+SO_FIT_STEPS, SO_RESUME_TO = 4, 6
+SO_SP_SECONDS = 15.5      # one phrase in the 1280-frame bucket
+SO_TURNS = 3              # timed turns of the 1-rank and the SP synthesis
+TOL_SO_REL = 1e-4         # DP against the 1-process step: losses, gnorm_g
+
+
+def so_step_inputs(torch, cfg):
+    """The training phase's batch (B=4, up to 640 frames, 192 tokens) and
+    fixed draws: eps_q [4, 640, H] and slice starts within each item's
+    valid frames."""
+    batch = training_batch(cfg, SO_BATCH, SO_TOKENS, SO_FRAMES, seed=0)
+    gen = torch.Generator().manual_seed(8)
+    eps_q = torch.randn(SO_BATCH, SO_FRAMES, cfg.hidden_size, generator=gen)
+    room = (torch.from_numpy(batch["mel_lengths"]).long()
+            - cfg.segment_size + 1).clamp(min=1)
+    ids = (torch.rand(SO_BATCH, generator=gen) * room).long()
+    return batch, eps_q, ids
+
+
+def so_grad_step(torch, cfg, dev, batch, eps_q, ids, timed: int = 0):
+    """From seeded weights at optimizer step 1 (past the KL warm-up), on
+    this process's rows: the generator's losses and gradients (both summed
+    over the ranks under a process group), one train step's metrics, then
+    ``timed`` more steps (ms each, their launches, peak GiB)."""
+    from visinger_tpu_torch.models.factory import build_models
+    from visinger_tpu_torch.ops import rel_attention as ra
+    from visinger_tpu_torch.ops import wavenet_stack as ws
+    from visinger_tpu_torch.parallel import mesh
+    from visinger_tpu_torch.training.train_state import create_train_state
+    from visinger_tpu_torch.training.train_step import make_train_step
+
+    model, disc = build_models(cfg, *VOCABS, device=dev, seed=0)
+    state = create_train_state(model, disc, seed=0)
+    state.step = 1
+    step = make_train_step(cfg, model, disc, device=dev)
+    eps_q, ids = eps_q.to(dev), ids.to(dev)
+    total, losses, _ = step.generator_loss(state, batch, eps_q, ids)
+    params = list(model.parameters())
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+        params, torch.autograd.grad(total, params, allow_unused=True))]
+    grads = [g.cpu() for g in mesh.all_reduce_grads(grads)]
+    losses = {k: float(v) for k, v in zip(
+        losses, mesh.global_sums([v.detach() for v in losses.values()]))}
+    state, m = step(state, batch, eps_q, ids)
+    metrics = {k: float(v) for k, v in m.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts(ra, ws)
+    ms = []
+    for _ in range(timed):
+        mesh.barrier()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch, eps_q, ids)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {"rel_attention_fwd": ra.launches,
+                "rel_attention_bwd": ra.bwd_launches,
+                "wavenet_stack_fwd": ws.launches}
+    return {"losses": losses, "grads": grads, "metrics": metrics,
+            "names": [n for n, _ in model.named_parameters()],
+            "step_ms": ms, "launches": launches,
+            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "spread": mesh.replicated_check([*model.parameters(),
+                                             *disc.parameters()])}
+
+
+def so_rel(got: dict, ref: dict) -> dict:
+    """Each value's error relative to the reference's (1e-7 of slack for a
+    value of 0)."""
+    return {k: abs(got[k] - r) / (abs(r) + 1e-7) for k, r in ref.items()}
+
+
+def so_rank_dp(torch, dev, root: Path) -> dict:
+    """(b) The DP step on this rank's 2 rows against the 1-process step on
+    the whole batch (``ref.pt``, written by the parent)."""
+    from visinger_tpu_torch.config import visinger_csd
+    from visinger_tpu_torch.parallel import mesh, multihost
+
+    ref = torch.load(root / "ref.pt", weights_only=False)
+    rows = multihost.host_batch_slice(SO_BATCH)
+    cfg = visinger_csd().replace(p_dropout=0.0)
+    got = so_grad_step(torch, cfg, dev, mesh.shard_batch(ref["batch"]),
+                       ref["eps_q"][rows], ref["ids"][rows],
+                       timed=SO_TIMED_STEPS)
+    loss_err = so_rel(got["losses"], ref["losses"])
+    metric_err = so_rel(got["metrics"], ref["metrics"])
+    grad_err, zero_noise, gmax, failures = grad_errors(
+        torch, ref["names"], got["grads"], ref["grads"])
+    failures += [f"{k}: rel err {e} > {TOL_SO_REL}" for k, e in
+                 {**loss_err, **metric_err}.items() if e > TOL_SO_REL]
+    check(not failures, f"scale_out dp rank {mesh.rank()}: "
+          + "; ".join(failures[:5]))
+    check(got["spread"] == 0.0, f"scale_out dp: parameters differ across "
+          f"the ranks by {got['spread']}")
+    n_attn = (cfg.enc_layers + cfg.pitch_predictor_layers
+              + cfg.frame_prior_layers + cfg.phoneme_predictor_layers)
+    want = {"rel_attention_fwd": n_attn * SO_TIMED_STEPS,
+            "rel_attention_bwd": n_attn * SO_TIMED_STEPS,
+            "wavenet_stack_fwd": (1 + cfg.flow_n_flows) * SO_TIMED_STEPS}
+    check(got["launches"] == want, f"scale_out dp: launches "
+          f"{got['launches']} != {want}")
+    return {"rows": [rows.start, rows.stop],
+            "max_loss_rel_err": max(loss_err.values()),
+            "max_metric_rel_err": max(metric_err.values()),
+            "gnorm_g_rel_err": metric_err["gnorm_g"],
+            "max_grad_err_of_peak": max(grad_err.values()),
+            "max_zero_grad_noise": max(zero_noise.values()),
+            "param_spread": got["spread"], "step_ms": got["step_ms"],
+            "launches": got["launches"], "peak_mem_gib": got["peak_mem_gib"]}
+
+
+def so_rank_fit(torch, ra, ws, dev, root: Path) -> dict:
+    """(c) ``Trainer.fit`` for SO_FIT_STEPS steps at full width on the
+    trainer phase's corpus, then a new trainer resumed to SO_RESUME_TO."""
+    from visinger_tpu_torch.config import visinger_csd
+    from visinger_tpu_torch.parallel import mesh
+    from visinger_tpu_torch.training.trainer import Trainer
+
+    cfg = visinger_csd().replace(
+        binary_data_dir=str(root / "data"), work_dir=str(root / "fit"),
+        num_ckpt_keep=3, tb_log_interval=2, val_check_interval=4,
+        num_sanity_val_steps=0, eval_max_batches=1)
+    zero_counts(ra, ws)
+    t0 = time.perf_counter()
+    captured(lambda: Trainer(cfg, device=dev).fit(max_updates=SO_FIT_STEPS))
+    state, out = captured(lambda: Trainer(cfg, device=dev).fit(
+        max_updates=SO_RESUME_TO))
+    seconds = time.perf_counter() - t0
+    launches = {"rel_attention_fwd": ra.launches,
+                "rel_attention_bwd": ra.bwd_launches,
+                "wavenet_stack_fwd": ws.launches}
+    n_attn = (cfg.enc_layers + cfg.pitch_predictor_layers
+              + cfg.frame_prior_layers + cfg.phoneme_predictor_layers)
+    steps, evals = SO_RESUME_TO, 1            # one valid batch at step 4
+    want = {"rel_attention_fwd": n_attn * (steps + evals),
+            "rel_attention_bwd": n_attn * steps,
+            "wavenet_stack_fwd": (1 + cfg.flow_n_flows) * (steps + evals)}
+    check(launches == want, f"scale_out fit: launches {launches} != {want}")
+    check(f"| resumed from step {SO_FIT_STEPS}" in out
+          and state.step == SO_RESUME_TO,
+          f"scale_out fit rank {mesh.rank()}: resume ended at {state.step}")
+    spread = mesh.replicated_check([*state.model.parameters(),
+                                    *state.disc.parameters()])
+    check(spread == 0.0, f"scale_out fit: parameters differ by {spread}")
+    return {"resumed": True, "step": state.step, "seconds": seconds,
+            "launches": launches, "param_spread": spread}
+
+
+def so_rank_sp(torch, ra, ws, dev, root: Path) -> dict:
+    """(d) Time-sharded synthesis through ``VISingerInfer`` with
+    ``sp_infer``: the 1280-frame score and the 24 s score, against the
+    single-device waveforms (``sp_ref.npz``), with the launches of one call
+    and ms in turns with the single-device path (rank 0 alone, the other
+    rank waiting)."""
+    import numpy as np
+
+    from visinger_tpu_torch.config import visinger_csd
+    from visinger_tpu_torch.infer.infer import VISingerInfer
+    from visinger_tpu_torch.parallel import mesh
+    from visinger_tpu_torch.run import vocab_sizes
+
+    cfg = visinger_csd()
+    scores = root / "scores"
+    inf = VISingerInfer(cfg.replace(sp_infer=True), flow_model(
+        torch, cfg, *vocab_sizes(scores)), scores, device=dev)
+    plain = VISingerInfer(cfg, inf.model, scores, device=dev)
+    refs = np.load(root / "sp_ref.npz")
+    out = {}
+    for name in ("sp1280", "long"):
+        fn = str(scores / f"{name}.mid")
+        phrases = len(inf._phrases(inf.score_rows(fn)))
+        inf.synthesize(fn, seed=0)                        # warm-up
+        if mesh.rank() == 0:
+            plain.synthesize(fn, seed=0)
+        zero_counts(ra, ws)
+        wav, _ = inf.synthesize(fn, seed=0)
+        launches = {"rel_attention_fwd": ra.launches,
+                    "wavenet_stack_fwd": ws.launches}
+        per = {"rel_attention_fwd": (cfg.enc_layers
+                                     + cfg.pitch_predictor_layers
+                                     + cfg.frame_prior_layers) * phrases,
+               "wavenet_stack_fwd": cfg.flow_n_flows * phrases}
+        check(launches == per, f"scale_out sp {name}: launches {launches} "
+              f"!= {per}")
+        ref = refs[name]
+        peak = float(np.abs(ref).max())
+        err = float(np.abs(wav - ref).max()) if wav.shape == ref.shape \
+            else float("inf")
+        check(peak > 0 and err <= TOL_CPU_REL * peak, f"scale_out sp "
+              f"{name}: max abs err {err} against the single-device "
+              f"waveform > {TOL_CPU_REL} x {peak}")
+        plain_ms, sp_ms = [], []
+        for _ in range(SO_TURNS):
+            mesh.barrier()
+            if mesh.rank() == 0:
+                t0 = time.perf_counter()
+                plain.synthesize(fn, seed=0)
+                plain_ms.append((time.perf_counter() - t0) * 1e3)
+            mesh.barrier()
+            t0 = time.perf_counter()
+            inf.synthesize(fn, seed=0)
+            sp_ms.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"phrases": phrases, "seconds": len(wav) / cfg.sample_rate,
+                     "launches": launches, "max_abs_err": err,
+                     "tol": TOL_CPU_REL * peak, "sp_ms": sp_ms,
+                     "one_rank_ms": plain_ms}
+    return out
+
+
+def scale_out_rank(rank: int, world: int, port: int, root: str,
+                   device: str) -> None:
+    """One rank of phase ``scale_out`` (spawned after the kernels are
+    built): gloo on ``device``, the card every rank shares; its results to
+    ``root/rank{rank}.json``."""
+    import torch
+
+    from visinger_tpu_torch.ops import rel_attention as ra
+    from visinger_tpu_torch.ops import wavenet_stack as ws
+    from visinger_tpu_torch.parallel import multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = Path(root)
+    dev = multihost.initialize_distributed(f"localhost:{port}", world, rank,
+                                           backend="gloo", device=device,
+                                           timeout_s=300)
+    try:
+        res = {"dp": so_rank_dp(torch, dev, root)}
+        torch.cuda.empty_cache()
+        res["fit"] = so_rank_fit(torch, ra, ws, dev, root)
+        torch.cuda.empty_cache()
+        res["sp"] = so_rank_sp(torch, ra, ws, dev, root)
+        (root / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        multihost.shutdown()
+
+
+def scale_out(torch, ra, ws, dev, root: Path) -> dict:
+    """The scale-out slice (phase ``scale_out``), at full width:
+    (a) the float32 step of phase ``training`` (B=4, T=640, dropout 0,
+        given draws) under an NCCL process group of world size 1 against
+        the bare step, beside the bare step run again: losses and metrics
+        within TOL_LOSS_REL, gradients within TOL_GRAD_REL of their peaks
+        (the card's backward is not bit-reproducible: the rerun shows by
+        how much);
+    (b) 2 gloo ranks on the card, 2 rows each of the same batch and draws:
+        losses, metrics and ``gnorm_g`` within TOL_SO_REL of the 1-process
+        step on the whole batch, the summed gradients within TOL_GRAD_REL
+        of their peaks, the parameters after the step the same bits on both
+        ranks; the step ms of both kinds and each rank's peak GiB (not a
+        claim: the ranks share the card);
+    (c) ``Trainer.fit`` under the same ranks on the trainer phase's corpus:
+        4 steps, then resumed to 6; one checkpoint set, written by rank 0;
+    (d) ``VISingerInfer`` with ``sp_infer`` on the same ranks: a
+        1280-frame score and the 24 s score within TOL_CPU_REL of their
+        peaks of the single-device waveform; the single-process loop over
+        both ranks' pieces (``sp_piece``) against the same reference;
+    (e) ``__graft_entry_torch__.entry()`` on the card and
+        ``dryrun_multichip(1)`` on NCCL.
+    Returns the launches per rank of a DP step and of an SP call."""
+    import gc
+    import os
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    import __graft_entry_torch__ as graft
+    from visinger_tpu_torch.config import visinger_csd
+    from visinger_tpu_torch.infer.infer import VISingerInfer
+    from visinger_tpu_torch.parallel import multihost, sp
+    from visinger_tpu_torch.run import vocab_sizes
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cfg = visinger_csd().replace(p_dropout=0.0)
+    batch, eps_q, ids = so_step_inputs(torch, cfg)
+
+    # (a) the bare step, again (the card's own spread between two runs of
+    # one step), then the same under NCCL at world size 1
+    bare = so_grad_step(torch, cfg, dev, batch, eps_q, ids,
+                        timed=SO_TIMED_STEPS)
+    runs = {"bare_rerun": so_grad_step(torch, cfg, dev, batch, eps_q, ids)}
+    multihost.initialize_distributed(f"localhost:{graft.free_port()}", 1, 0,
+                                     backend="nccl", device=dev)
+    try:
+        runs["nccl_world_1"] = so_grad_step(torch, cfg, dev, batch, eps_q,
+                                            ids)
+    finally:
+        multihost.shutdown()
+    against_bare = {}
+    for name, run in runs.items():
+        grad_err, _, _, failures = grad_errors(torch, bare["names"],
+                                               run["grads"], bare["grads"])
+        worst = max(grad_err, key=grad_err.get)
+        against_bare[name] = {
+            "losses": max(so_rel(run["losses"], bare["losses"]).values()),
+            "metrics": max(so_rel(run["metrics"], bare["metrics"]).values()),
+            "grads_max_abs": max(float((a - b).abs().max()) for a, b in zip(
+                run["grads"], bare["grads"])),
+            "grad_err_of_peak": grad_err[worst], "worst_grad": worst,
+            "grads_equal": sum(torch.equal(a, b) for a, b in zip(
+                run["grads"], bare["grads"])),
+            "grad_tensors": len(run["grads"])}
+        check(not failures and against_bare[name]["losses"] <= TOL_LOSS_REL
+              and against_bare[name]["metrics"] <= TOL_LOSS_REL,
+              f"scale_out {name}: {against_bare[name]} {failures[:3]}")
+    torch.save({k: bare[k] for k in ("losses", "metrics", "grads", "names")}
+               | {"batch": batch, "eps_q": eps_q, "ids": ids},
+               root / "ref.pt")
+    del runs
+
+    # (c)'s corpus; (d)'s scores and their single-device waveforms
+    write_corpus(root / "data", TRAIN_ITEMS, VALID_ITEMS, ITEM_TOKENS,
+                 ITEM_FRAMES, cfg.hop_size)
+    vcfg = visinger_csd()
+    (root / "scores").mkdir()
+    scores = write_scores(root / "scores", vcfg, seed=0,
+                          extra=(("sp1280", SO_SP_SECONDS),))
+    inf = VISingerInfer(vcfg, flow_model(torch, vcfg, *vocab_sizes(
+        root / "scores")), root / "scores", device=dev)
+    one, t_valid = inf._pad_to_bucket(inf.preprocess_input(scores["sp1280"]))
+    t_pad = one["mel2ph"].shape[1]
+    check(t_pad == 1280 and len(inf._phrases(inf.score_rows(
+        scores["sp1280"]))) == 1, f"scale_out: the SP score is {t_valid} "
+        f"frames in a {t_pad}-frame bucket")
+    refs = {name: inf.synthesize(scores[name], seed=0)[0]
+            for name in ("sp1280", "long")}
+    np.savez(root / "sp_ref.npz", **refs)
+    x = {k: torch.from_numpy(v).long().to(dev) for k, v in one.items()}
+    with torch.no_grad():
+        z_p, mask = inf.model.infer_prior(
+            x["text_tokens"], x["note_pitch"], x["note_dur"], x["mel2ph"],
+            spk_id=x["spk_ids"], eps=inf.prior_noise(t_pad, 0).to(dev))
+        full = inf.model.decode_frames(z_p, mask, spk_id=x["spk_ids"])
+        pieces = torch.cat([sp.sp_piece(inf.model, z_p, mask, r, SO_WORLD,
+                                        spk_id=x["spk_ids"])
+                            for r in range(SO_WORLD)], dim=1)
+    loop_err = float((pieces - full).abs().max())
+    loop_tol = TOL_CPU_REL * float(full.abs().max())
+    check(loop_err <= loop_tol, f"scale_out: the loop over the ranks' "
+          f"pieces is {loop_err} from the full decode > {loop_tol}")
+    del inf, x, z_p, mask, full, pieces
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b), (c), (d) on 2 spawned ranks
+    t0 = time.perf_counter()
+    mp.start_processes(scale_out_rank, args=(SO_WORLD, graft.free_port(),
+                                             str(root), str(dev)),
+                       nprocs=SO_WORLD, start_method="spawn")
+    ranks_s = time.perf_counter() - t0
+    ranks = [json.loads((root / f"rank{r}.json").read_text())
+             for r in range(SO_WORLD)]
+    fit_dir = root / "fit"
+    files = sorted(os.listdir(fit_dir))
+    ckpts = [f for f in files if f.startswith("model_ckpt_steps_")]
+    check(ckpts == [f"model_ckpt_steps_{SO_FIT_STEPS}.pt",
+                    f"model_ckpt_steps_{SO_RESUME_TO}.pt"]
+          and not [f for f in files if f.endswith(".part")]
+          and {"model_ckpt_best.pt", "best.json", "log.jsonl"} <= set(files),
+          f"scale_out fit: work dir holds {files}")
+    log = [json.loads(line) for line in
+           (fit_dir / "log.jsonl").read_text().splitlines()]
+    train_steps = [r["step"] for r in log if r["prefix"] == "train"]
+    val_steps = [r["step"] for r in log if r["prefix"] == "val"]
+    check(train_steps == [2, 4, 6] and val_steps == [4],
+          f"scale_out fit: log steps {train_steps}, val {val_steps}")
+
+    # (e) the entry points of __graft_entry_torch__.py
+    fn, args = graft.entry(device=dev)
+    wav_out, kl = fn(*args)
+    torch.cuda.synchronize()
+    check(tuple(wav_out.shape) == (2, visinger_csd().segment_size
+                                   * visinger_csd().hop_size)
+          and bool(torch.isfinite(wav_out).all())
+          and bool(torch.isfinite(kl)), f"scale_out entry: {wav_out.shape}")
+    del fn, args, wav_out
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    graft.dryrun_multichip(1)
+    dryrun_s = time.perf_counter() - t0
+
+    dp_launches = {k: v / SO_TIMED_STEPS
+                   for k, v in ranks[0]["dp"]["launches"].items()}
+    sp_launches = {name: {k: v / r["phrases"]
+                          for k, v in r["launches"].items()}
+                   for name, r in ranks[0]["sp"].items()}
+    phase("scale_out", world=SO_WORLD, backend="gloo, one card",
+          batch=SO_BATCH, frames=SO_FRAMES, against_bare=against_bare,
+          one_process_step_ms=bare["step_ms"],
+          one_process_peak_mem_gib=bare["peak_mem_gib"],
+          ranks=ranks, ranks_seconds=ranks_s,
+          fit_files=files, sp_loop_max_abs_err=loop_err, sp_loop_tol=loop_tol,
+          sp_frames=t_pad, entry_kl=float(kl.detach()),
+          dryrun_nccl_1_seconds=dryrun_s,
+          dp_launches_per_step_per_rank=dp_launches,
+          sp_launches_per_phrase_per_rank=sp_launches,
+          seconds=time.perf_counter() - t_phase)
+    shutil.rmtree(root, ignore_errors=True)
+    return {"dp_step_per_rank": dp_launches,
+            "sp_call_per_rank": {name: r["launches"]
+                                 for name, r in ranks[0]["sp"].items()}}
+
+
 def ptxas_functions(log: str) -> list:
     """Each kernel's registers and spill bytes from ``nvcc -Xptxas -v``."""
     rows, cur = [], None
@@ -2580,6 +3029,11 @@ def main() -> int:
         visinger_csd())
     k2_window = check_wavenet_stack(torch, ws, dev, 4, "stream_window",
                                     t=window, lengths=(window - 30,))
+    # a rank's window of time-sharded synthesis (phase scale_out): half of
+    # a 1280-frame score and one halo, the last rank's ragged
+    sp_window = 1280 // SO_WORLD + halo_frames(visinger_csd())
+    k2_sp = check_wavenet_stack(torch, ws, dev, 4, "sp_window", t=sp_window,
+                                lengths=(sp_window - 43,))
     train_counts, bare_ms, train_peak = training(torch, ra, ws, dev,
                                                  args.profile)
     train_card_vs_cpu(torch, dev)
@@ -2600,6 +3054,10 @@ def main() -> int:
     train_variants(torch, ra, ws, dev, bf16_root / soak_r5().binary_data_dir)
     shutil.rmtree(bf16_root, ignore_errors=True)
     export_counts = export_phase(torch, ra, ws, dev, ROOT / "build" / "export")
+    scale_counts = scale_out(torch, ra, ws, dev, ROOT / "build" / "scale_out")
+    k1_dp = next(r for r in k1_rows if r["shape"].endswith("dp rank"))
+    k3_dp = next(r for r in k3_rows if r["shape"].endswith("dp rank")
+                 and r["dropout"] > 0)
 
     k1 = k1_rows[0]  # the frame-rate shape: 12 of the 18 layers per step
     k1_token = k1_rows[1]
@@ -2632,7 +3090,15 @@ def main() -> int:
          "midi_phrase_ms": k1_phrase["ms"],
          "midi_phrase_plain_ms": k1_phrase["plain_ms"],
          "midi_phrase_bound_ms": k1_phrase["bound_ms"],
-         "midi_phrase_bound_tc_ms": k1_phrase["bound_tc_ms"]},
+         "midi_phrase_bound_tc_ms": k1_phrase["bound_tc_ms"],
+         "scale_out_launches": {
+             "dp_step_per_rank": scale_counts["dp_step_per_rank"][
+                 "rel_attention_fwd"],
+             "sp_call_per_rank": {n: c["rel_attention_fwd"] for n, c in
+                                  scale_counts["sp_call_per_rank"].items()}},
+         "dp_rank_shape": k1_dp["shape"], "dp_rank_ms": k1_dp["ms"],
+         "dp_rank_plain_ms": k1_dp["plain_ms"],
+         "dp_rank_bound_ms": k1_dp["bound_ms"]},
         {"name": "rel_attention_bwd", "route": "cuda",
          "source": "visinger_tpu_torch/csrc/rel_attention.cu",
          "replaces": "visinger_tpu/ops/pallas/attention_kernel.py:250",
@@ -2648,13 +3114,19 @@ def main() -> int:
              if r["shape"].endswith("frame") and r["dropout"] == 0.0),
          "bit_identical_rerun": True,
          "pipeline_launches": pipeline_counts["rel_attention_bwd"],
-         "trainer_launches": trainer_counts["rel_attention_bwd"]},
+         "trainer_launches": trainer_counts["rel_attention_bwd"],
+         "scale_out_launches": {
+             "dp_step_per_rank": scale_counts["dp_step_per_rank"][
+                 "rel_attention_bwd"], "sp_call_per_rank": 0},
+         "dp_rank_shape": f"{k3_dp['shape']}, dropout 0.1",
+         "dp_rank_ms": k3_dp["ms"], "dp_rank_plain_ms": k3_dp["plain_ms"],
+         "dp_rank_bound_ms": k3_dp["bound_ms"]},
         {"name": "wavenet_stack_fwd", "route": "cuda",
          "source": "visinger_tpu_torch/csrc/wavenet_stack.cu",
          "replaces": "visinger_tpu/ops/pallas/wavenet_kernel.py:115",
          "launches": train_counts["wavenet_stack_fwd"],
          "max_abs_err": max(k2_row["max_abs_err"], k2_post["max_abs_err"],
-                            k2_window["max_abs_err"]),
+                            k2_window["max_abs_err"], k2_sp["max_abs_err"]),
          "ms": k2_post["ms"], "plain_ms": k2_post["plain_ms"],
          "call_ms": k2_post["call_ms"],
          "plain_call_ms": k2_post["plain_call_ms"],
@@ -2672,7 +3144,15 @@ def main() -> int:
          "window_shape": k2_window["shape"], "window_ms": k2_window["ms"],
          "window_plain_ms": k2_window["plain_ms"],
          "window_bound_ms": k2_window["bound_ms"],
-         "window_bound_tc_ms": k2_window["bound_tc_ms"]},
+         "window_bound_tc_ms": k2_window["bound_tc_ms"],
+         "scale_out_launches": {
+             "dp_step_per_rank": scale_counts["dp_step_per_rank"][
+                 "wavenet_stack_fwd"],
+             "sp_call_per_rank": {n: c["wavenet_stack_fwd"] for n, c in
+                                  scale_counts["sp_call_per_rank"].items()}},
+         "sp_window_shape": k2_sp["shape"], "sp_window_ms": k2_sp["ms"],
+         "sp_window_plain_ms": k2_sp["plain_ms"],
+         "sp_window_bound_ms": k2_sp["bound_ms"]},
     ]
     k1b = next(r for r in k1b_rows if r["shape"].endswith("frame"))
     k3b = next(r for r in k3b_rows if r["shape"].endswith("frame"))

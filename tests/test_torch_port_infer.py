@@ -276,6 +276,11 @@ def test_malformed_score_and_mode_conflict_raise(pair, scores):  # noqa: F811
     with pytest.raises(ValueError, match="mutually exclusive"):
         VISingerInfer(port.cfg.replace(sp_infer=True, stream_infer=True),
                       port.model, scores[0], device="cpu")
-    with pytest.raises(NotImplementedError, match="sp_infer"):
-        VISingerInfer(port.cfg.replace(sp_infer=True), port.model,
-                      scores[0], device="cpu")
+    # sp_infer builds, and with no process group (world size 1) it is the
+    # plain path: the same padding and the same waveform bit for bit
+    plain = VISingerInfer(port.cfg, port.model, scores[0], device="cpu")
+    seq = VISingerInfer(port.cfg.replace(sp_infer=True), port.model,
+                        scores[0], device="cpu")
+    wav_plain, _ = plain.synthesize(scores[1]["short0"])
+    wav_seq, _ = seq.synthesize(scores[1]["short0"])
+    np.testing.assert_array_equal(wav_seq, wav_plain)

@@ -251,25 +251,29 @@ def _forbidden_imports(path: Path) -> list:
 
 
 def test_port_imports_nothing_of_jax():
-    """The port and chip_smoke.py import no jax, flax, yaml, msgpack or
-    visinger_tpu: no source names one in an import statement, at module
-    level or inside a function, and none imports a module by name
-    (``importlib``, ``__import__``), so every import is one of those
-    statements; and every module of the package, and chip_smoke.py, imports
-    with those packages blocked."""
+    """The port, chip_smoke.py and __graft_entry_torch__.py import no jax,
+    flax, yaml, msgpack or visinger_tpu: no source names one in an import
+    statement, at module level or inside a function, and none imports a
+    module by name (``importlib``, ``__import__``), so every import is one
+    of those statements; and every module of the package (``parallel/``
+    among them), chip_smoke.py and __graft_entry_torch__.py import with
+    those packages blocked."""
     pkg = REPO / "visinger_tpu_torch"
     sources = sorted(pkg.rglob("*.py"))
-    for path in [*sources, REPO / "chip_smoke.py"]:
+    roots = [REPO / "chip_smoke.py", REPO / "__graft_entry_torch__.py"]
+    for path in [*sources, *roots]:
         hits = _forbidden_imports(path)
         assert not hits, f"{path.relative_to(REPO)} imports {hits}"
     modules = sorted(".".join(p.relative_to(REPO).with_suffix("").parts[
         :-1 if p.name == "__init__.py" else None]) for p in sources)
     assert len(modules) > 50 and "visinger_tpu_torch.run" in modules
+    assert {f"visinger_tpu_torch.parallel.{m}" for m in
+            ("mesh", "multihost", "sp")} <= set(modules)
     script = f"""
 import importlib, sys
 for name in {_BLOCKED!r}:
     sys.modules[name] = None
-for mod in {modules!r} + ["chip_smoke"]:
+for mod in {modules!r} + ["chip_smoke", "__graft_entry_torch__"]:
     importlib.import_module(mod)
 print("isolated-ok", len(sys.modules))
 """

@@ -85,8 +85,13 @@ def test_check_supported_takes_the_training_settings(setting):
 
 
 def test_check_supported_still_refuses():
-    with pytest.raises(NotImplementedError, match="sp_infer"):
-        check_supported(visinger_csd().replace(sp_infer=True))
+    # sp_infer is taken now (parallel/sp.py), on the CPU and on CUDA, but
+    # not together with stream_infer
+    for dev in ("cpu", "cuda"):
+        check_supported(visinger_csd().replace(sp_infer=True), dev)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        check_supported(visinger_csd().replace(sp_infer=True,
+                                               stream_infer=True))
     with pytest.raises(KeyError, match="remat_policy"):
         check_supported(visinger_csd().replace(remat_policy="offload"))
     with pytest.raises(ValueError, match="compute_dtype"):

@@ -21,10 +21,9 @@ alone and equals the JAX package's for the same noise.
 ``compute_dtype`` "bfloat16" runs every layer in bf16 with float32
 parameters, LayerNorm statistics, softmax and distribution statistics, as
 the JAX package does; ``bf16_f32_islands`` names subsystems (``ISLANDS``)
-that stay float32.  Settings this port does not run yet (``sp_infer``)
-raise ``NotImplementedError`` when a model, a server or a train step is
-built, and so do widths the CUDA kernels do not take when it is built for a
-CUDA device (``check_supported``).
+that stay float32.  Widths the CUDA kernels do not take raise
+``NotImplementedError`` when a model, a server or a train step is built
+for a CUDA device (``check_supported``).
 """
 
 from __future__ import annotations
@@ -316,8 +315,7 @@ REMAT_POLICIES = ("none", "full", "dots")
 
 
 def check_supported(cfg: Config, device=None) -> None:
-    """Raise ``NotImplementedError`` for a setting this port does not run
-    yet, rather than ignoring it; for a build on a CUDA ``device``, also for
+    """Raise ``NotImplementedError``, for a build on a CUDA ``device``, for
     a width the CUDA kernels do not take (K1 and K3: a head width that is
     not a multiple of 8 or is above 128; K2: channels not a multiple of 32).
     On the CPU the plain versions run any width.  ``sp_infer`` together
@@ -341,7 +339,7 @@ def check_supported(cfg: Config, device=None) -> None:
         # the JAX step looks the policy up in a dict of these names
         raise KeyError(f"remat_policy {cfg.remat_policy!r} is not one of "
                        f"{REMAT_POLICIES}")
-    unsupported = {"sp_infer": cfg.sp_infer}
+    unsupported = {}
     if str(device).startswith("cuda"):
         h, heads = cfg.hidden_size, cfg.num_heads
         dk = h // heads

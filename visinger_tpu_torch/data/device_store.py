@@ -98,22 +98,27 @@ class DeviceStore:
 
 
 def gather_batch(arrays: dict, idxs: torch.Tensor, t_bucket: int,
-                 n_bucket: int, hop: int) -> dict:
+                 n_bucket: int, hop: int, rows: slice | None = None) -> dict:
     """The batch of rows ``idxs`` ([B], on the store's device), sliced to
     the bucket (sliced before the gather, so the padding past the bucket is
     not copied): the host collate's fields and dtypes (int16 wavs stay int16;
     the step dequantizes).  Plans pad a batch by repeating its last index
     and real indices in a batch are unique, so a row equal to its left
-    neighbour is padding: item weight 0."""
+    neighbour is padding: item weight 0.  ``rows`` (a data-parallel rank's
+    share of the batch): only those rows are gathered, with the weights
+    they have in the whole batch."""
+    weights = torch.cat([torch.ones(1, device=idxs.device),
+                         (idxs[1:] != idxs[:-1]).float()])
+    if rows is not None:
+        idxs, weights = idxs[rows], weights[rows]
+
     def g(name, width=None):
         a = arrays[name]
         return (a if width is None else a[:, :width]).index_select(0, idxs)
 
     tokens = g("tokens")[:, :, :n_bucket]
     out = {
-        "item_weights": torch.cat([
-            torch.ones(1, device=idxs.device),
-            (idxs[1:] != idxs[:-1]).float()]),
+        "item_weights": weights,
         "wavs": g("wavs", t_bucket * hop),
         "f0": g("f0", t_bucket),
         "uv": g("uv", t_bucket).float(),

@@ -9,10 +9,14 @@ score to its (frame, token) bucket edges exactly as the JAX package does,
 runs the prior (K1) and the flow reverse (K2) and HiFi-GAN decoder, and
 returns the waveform and its real-time factor.  Scores longer than the
 largest frame bucket are split into phrases.  With ``stream_infer`` the
-decode runs window by window (``infer/streaming.py``).  The prior noise of a
-score is drawn on the CPU from a ``torch.Generator`` seeded by ``seed``
-([1, t_pad, H] per score), so a score's audio depends on the score and the
-seed alone, on every device and in every group.
+decode runs window by window (``infer/streaming.py``); with ``sp_infer``
+under a process group of more than one rank, every rank runs the prior and
+decodes its share of the frames (``parallel/sp.py``), the frames padded
+to a multiple of the world size as the JAX package pads them, and every
+rank returns the whole waveform; at one rank the plain path runs.  The
+prior noise of a score is drawn on the CPU from a ``torch.Generator``
+seeded by ``seed`` ([1, t_pad, H] per score), so a score's audio depends
+on the score and the seed alone, on every device and in every group.
 
 ``TorchSynthesizer`` serves requests, dicts of int arrays ``text_tokens``,
 ``note_pitch``, ``note_dur`` ([N] or [1, N]), ``mel2ph`` ([T] or [1, T],
@@ -40,6 +44,8 @@ from visinger_tpu_torch.data.preprocess import (midi_to_encoding,
 from visinger_tpu_torch.infer.export import prior_noise
 from visinger_tpu_torch.infer.streaming import StreamingSynthesizer
 from visinger_tpu_torch.models.factory import build_model, resolve_device
+from visinger_tpu_torch.parallel import mesh
+from visinger_tpu_torch.parallel.sp import pad_frames_for_mesh, sp_decode
 from visinger_tpu_torch.utils.audio.align import get_note2dur
 from visinger_tpu_torch.utils.audio.spk_embed import SPK_EMBED_DIM
 from visinger_tpu_torch.utils.audio.io import save_wav
@@ -154,6 +160,7 @@ class VISingerInfer:
         self._streamer = (StreamingSynthesizer(cfg, self.model,
                                                device=self.device)
                           if cfg.stream_infer else None)
+        self._sp_world = mesh.world_size() if cfg.sp_infer else 1
         self.last_group_seconds: list[float] = []
 
     # ------------------------------------------------------------------
@@ -224,7 +231,8 @@ class VISingerInfer:
         t = len(inp["mel2ph"])
         buckets = list(cfg.frame_buckets)
         ti = bisect.bisect_left(buckets, t)
-        t_pad = buckets[ti] if ti < len(buckets) else t
+        t_pad = pad_frames_for_mesh(
+            buckets[ti] if ti < len(buckets) else t, self._sp_world)
         n = len(inp["text_tokens"])
         tok_buckets = list(cfg.token_buckets)
         ni = bisect.bisect_left(tok_buckets, n)
@@ -258,6 +266,9 @@ class VISingerInfer:
             batch["text_tokens"], batch["note_pitch"], batch["note_dur"],
             batch["mel2ph"], spk_id=batch["spk_ids"], eps=eps,
             spk_embed=batch.get("spk_embed"))
+        if self._sp_world > 1:
+            return sp_decode(self.model, z_p, mask, spk_id=batch["spk_ids"],
+                             spk_embed=batch.get("spk_embed"))
         return self.model.decode_frames(z_p, mask, spk_id=batch["spk_ids"],
                                         spk_embed=batch.get("spk_embed"))
 

@@ -196,7 +196,7 @@ class VISinger(nn.Module):
     def forward(self, text_tokens, pitch_tokens, dur_tokens, mel2ph,
                 spk_id=None, infer: bool = True, eps=None, generator=None,
                 f0=None, uv=None, spec=None, lengths=None, item_weights=None,
-                eps_q=None, ids_slice=None, spk_embed=None):
+                eps_q=None, ids_slice=None, spk_embed=None, kl_count=None):
         """The JAX ``__call__``.  ``infer=True`` -> {mu_p, logs_p, f0_pred,
         wav_out}.  ``infer=False`` (training) also takes ``f0``/``uv``
         [B, T], the linear spectrogram ``spec`` [B, T, num_linear_bins],
@@ -205,7 +205,9 @@ class VISinger(nn.Module):
         z_q, mu_q, logs_q, kl, ids_slice, wav_out}.  The posterior noise
         ``eps_q`` [B, T, H] and the slice starts ``ids_slice`` [B] are drawn
         from ``generator`` unless given; ``spk_embed`` [B, 256] is the voice
-        embedding of a ``use_spk_embed`` recipe."""
+        embedding of a ``use_spk_embed`` recipe.  ``kl_count`` is the KL's
+        denominator when it is not the batch's own count of valid frames
+        (the global count under data parallelism)."""
         if infer:
             ret = self.prior_stats(text_tokens, pitch_tokens, dur_tokens,
                                    mel2ph, spk_id, spk_embed=spk_embed)
@@ -240,7 +242,8 @@ class VISinger(nn.Module):
         kl_mask = mask
         if item_weights is not None:
             kl_mask = kl_mask * item_weights.float()[:, None, None]
-        ret["kl"] = (kl * kl_mask).sum() / kl_mask.sum().clamp(min=1.0)
+        ret["kl"] = (kl * kl_mask).sum() / (
+            kl_mask.sum() if kl_count is None else kl_count).clamp(min=1.0)
         z_slice, ret["ids_slice"] = rand_slice_segments(
             ret["z_q"], cfg.segment_size,
             None if cfg.slice_ref_padded else lengths, generator, ids_slice)

@@ -47,12 +47,19 @@ def rand_slice_segments(x: torch.Tensor, segment_size: int,
     given instead of drawn.  Returns (slices, ids)."""
     b, t = x.shape[:2]
     if ids is None:
-        if lengths is None:
-            ids_max = torch.full((b,), t - segment_size + 1, device=x.device)
-        else:
-            ids_max = (lengths.to(x.device).long() - segment_size + 1
-                       ).clamp(min=1)
         u = torch.rand(b, generator=generator, device=x.device)
-        ids = (u * ids_max.float()).long()
+        ids = slice_starts(u, lengths, t, segment_size)
     ids = ids.to(x.device).long()
     return slice_segments(x, ids, segment_size), ids
+
+
+def slice_starts(u: torch.Tensor, lengths: torch.Tensor | None, t: int,
+                 segment_size: int) -> torch.Tensor:
+    """Window starts from uniforms ``u`` [B] in [0, 1): within each item's
+    valid ``lengths``, or within ``t`` frames when ``lengths`` is None."""
+    if lengths is None:
+        ids_max = torch.full(u.shape, t - segment_size + 1, device=u.device)
+    else:
+        ids_max = (lengths.to(u.device).long() - segment_size + 1
+                   ).clamp(min=1)
+    return (u * ids_max.float()).long()

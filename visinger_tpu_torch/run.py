@@ -25,6 +25,14 @@ records of ``binary_data_dir`` from it.  These three are numpy on the host.
 (default ``cuda``; ``cpu`` runs the kernels' plain versions); ``export``
 writes a serving artifact for that device type (``infer/export.py``).
 
+``train`` runs data-parallel under a process group: one process per card,
+started by ``torchrun --nproc-per-node N -m visinger_tpu_torch.run train
+...`` (or with the JAX package's ``VISINGER_COORDINATOR``,
+``VISINGER_NUM_PROCESSES`` and ``VISINGER_PROCESS_ID``); ``--device cuda``
+is then ``cuda:<LOCAL_RANK>`` and the backend NCCL, or gloo on the CPU or
+when the ranks outnumber the cards (``multihost.choose_backend``).  Rank 0
+writes the config, the checkpoints, the logs and the test split.
+
 ``--config`` is a recipe name (``visinger_csd``, the default, ``tpu_run``,
 ``soak_r5`` or ``parity_run``) or a JSON file of ``Config`` fields
 (``Config.to_dict``); ``--hparams`` overrides fields, with dotted keys
@@ -126,12 +134,14 @@ class _Tee:
 
 
 @contextlib.contextmanager
-def tee_terminal(work_dir: str):
+def tee_terminal(work_dir: str, tag: str = ""):
     """Copy stdout and stderr into ``work_dir/terminal_logs/log_<time>.txt``
-    while the block runs; the streams are restored after it."""
+    (``log_<time>_<tag>.txt`` with a ``tag``: one file per rank) while the
+    block runs; the streams are restored after it."""
     log_dir = os.path.join(work_dir, "terminal_logs")
     os.makedirs(log_dir, exist_ok=True)
-    fn = os.path.join(log_dir, f"log_{int(time.time())}.txt")
+    fn = os.path.join(log_dir, f"log_{int(time.time())}"
+                      f"{'_' + tag if tag else ''}.txt")
     out, err = sys.stdout, sys.stderr
     with open(fn, "a", buffering=1) as f:
         sys.stdout, sys.stderr = _Tee(out, f), _Tee(err, f)
@@ -177,14 +187,26 @@ def cmd_binarize(args):
 
 def cmd_train(args):
     """Train; with ``test_after_train``, then synthesize the test split with
-    the final state into ``<work_dir>/test_after_train``."""
+    the final state into ``<work_dir>/test_after_train``.  When the
+    environment asks for a process group (torchrun's or the JAX package's
+    variables), each process is one data-parallel rank: the group starts
+    first, and a failure to start it raises."""
+    from visinger_tpu_torch.parallel import mesh, multihost
     from visinger_tpu_torch.training.trainer import Trainer
 
-    cfg = resolve_config(args)
-    with tee_terminal(cfg.work_dir):
-        trainer = Trainer(cfg, device=args.device)
+    device = args.device
+    if multihost.requested():
+        device = multihost.initialize_distributed(device=device)
+    primary = multihost.is_primary()
+    if primary:
+        cfg = resolve_config(args)
+    mesh.barrier()      # rank 0 has written the config the others read
+    if not primary:
+        cfg = resolve_config(args, persist=False)
+    with tee_terminal(cfg.work_dir, "" if primary else f"rank{mesh.rank()}"):
+        trainer = Trainer(cfg, device=device)
         state = trainer.fit()
-        if cfg.test_after_train:
+        if cfg.test_after_train and primary:
             trainer.test(state, out_dir=os.path.join(cfg.work_dir,
                                                      "test_after_train"))
     return state

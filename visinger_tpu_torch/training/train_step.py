@@ -28,6 +28,24 @@ keeps the matrix products' outputs (selective checkpointing).  The
 recompute restores the state's generator to where the forward started, so
 it draws the same noise, slices and dropout masks and the gradients are
 those of "none".
+
+Data parallelism (``parallel/``): under a process group each rank passes
+its rows of the global batch.  Every loss divides the rank's masked sum by
+the global count: the step computes every count from the batch and the
+slice starts before its forward and sums them over the ranks in one
+collective (``global_counts``), and after the forward one more sums the KL
+for its ``kl_min`` clamp; the model and the losses call no collective, so
+the recompute of "full" or "dots" issues none.  The gradients are summed
+over the ranks before ``gnorm_g``, the clip and each optimizer (once per
+micro-batch under accumulation), and the metrics are summed over the ranks,
+so every rank holds the global step's metrics and makes the same update.
+With more than one rank, ``eps_q`` and ``ids_slice`` (when not given) are
+drawn at the global batch's shape from the state's generator, which every
+rank holds in the same state, and the rank keeps its rows: with dropout
+off the step is the 1-process step on the global batch.  Dropout masks and
+attention-dropout seeds come from a generator of the rank's own
+(``rank_generator``: seeded from the seed, the step and the rank), so no
+two ranks drop the same entries of their items.
 """
 
 from __future__ import annotations
@@ -41,10 +59,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from visinger_tpu_torch.config import Config, check_supported
 from visinger_tpu_torch.models.factory import resolve_device
-from visinger_tpu_torch.ops.masking import slice_segments
+from visinger_tpu_torch.ops.masking import slice_segments, slice_starts
 from visinger_tpu_torch.ops.stft import (STFTParams, log_mel_slices,
                                          log_mel_spectrogram,
                                          power_spectrogram)
+from visinger_tpu_torch.parallel import mesh
 from visinger_tpu_torch.training import losses as L
 from visinger_tpu_torch.training.train_state import (TrainState, global_norm,
                                                      make_optimizers)
@@ -66,25 +85,53 @@ def device_batch(batch: dict, device: torch.device) -> dict:
     return out
 
 
-def recon_losses(cfg: Config, stft: STFTParams, b: dict, out: dict,
-                 w) -> dict:
+def recon_losses(cfg: Config, stft: STFTParams, b: dict, out: dict, w,
+                 counts: dict | None = None, tgt_slice=None) -> dict:
     """The generator's reconstruction losses but the KL, from the training
     branch's outputs ``out`` for the device batch ``b``: mel_l1 on the
-    decoded slice, and uv/f0 and ctc where the recipe has those heads."""
-    tgt_slice = log_mel_slices(b["wavs"], out["ids_slice"], cfg.segment_size,
-                               stft)
+    decoded slice, and uv/f0 and ctc where the recipe has those heads.
+    ``counts``: the global denominators under data parallelism
+    (``global_counts``); ``tgt_slice``: the target mel slices, if already
+    made."""
+    if tgt_slice is None:
+        tgt_slice = log_mel_slices(b["wavs"], out["ids_slice"],
+                                   cfg.segment_size, stft)
+    c = counts or {}
     mel_out = log_mel_spectrogram(out["wav_out"], stft)
     losses = {"mel_l1": L.mel_losses_total(cfg.mel_losses, mel_out,
-                                           tgt_slice, w)}
+                                           tgt_slice, w, c.get("mel"))}
     if cfg.use_pitch_embed:
         losses["uv"], losses["f0"] = L.pitch_losses(
             out["f0_pred"], b["f0"], b["uv"], b["mel2ph"], cfg.lambda_uv,
-            cfg.lambda_f0, w)
+            cfg.lambda_f0, w, c.get("frames"), c.get("voiced"))
     if cfg.use_phoneme_pred:
         losses["ctc"] = L.ctc_loss(
             out["ph_pred"], b["mel_lengths"], b["text_tokens"],
-            b["text_lengths"], cfg.lambda_ctc, w)
+            b["text_lengths"], cfg.lambda_ctc, w, c.get("items"))
     return losses
+
+
+def global_counts(cfg: Config, stft: STFTParams, b: dict,
+                  ids_slice: torch.Tensor) -> tuple[dict, torch.Tensor]:
+    """(every loss's denominator summed over the ranks in one collective,
+    the target mel slices) for the rank's device batch ``b`` and its slice
+    starts: what a rank needs before its forward under data
+    parallelism."""
+    tgt_slice = log_mel_slices(b["wavs"], ids_slice, cfg.segment_size, stft)
+    counts = L.loss_counts(tgt_slice, b["mel2ph"], b.get("uv"),
+                           b.get("item_weights"))
+    return dict(zip(counts, mesh.global_sums(list(counts.values())))), \
+        tgt_slice
+
+
+def rank_generator(seed: int, step: int, rank: int,
+                   device) -> torch.Generator:
+    """The generator of a rank's dropout draws at ``step``: seeded from
+    (seed, step, rank) through ``numpy.random.SeedSequence``, so ranks and
+    steps draw apart and a resumed run draws what the first run drew."""
+    s = np.random.SeedSequence([seed, step, rank]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(s))
 
 
 # the matrix products whose outputs "dots" keeps (jax.checkpoint_policies
@@ -144,13 +191,80 @@ class TrainStep:
     def _batch(self, batch: dict) -> dict:
         return device_batch(batch, self.device)
 
+    def global_draws(self, state: TrainState, batch: dict, eps_q=None,
+                     ids_slice=None):
+        """(eps_q [B, T, H], ids_slice [B]) for the rank's ``batch``: each
+        one not given is drawn at the global batch's shape from the state's
+        generator, in the model's order and layout (the posterior's noise
+        [B_global, H, T], then the slice uniforms), and the rank's rows
+        kept."""
+        n, t = batch["mel2ph"].shape
+        total = n * mesh.world_size()
+        rows = mesh.host_batch_slice(total)
+        gen = state.generator
+        if eps_q is None:
+            eps_q = torch.randn((total, self.cfg.hidden_size, t),
+                                generator=gen, device=self.device
+                                )[rows].transpose(1, 2)
+        if ids_slice is None:
+            u = torch.rand(total, generator=gen, device=self.device)[rows]
+            lengths = None if self.cfg.slice_ref_padded else device_batch(
+                {"mel_lengths": batch["mel_lengths"]},
+                self.device)["mel_lengths"]
+            ids_slice = slice_starts(u, lengths, t, self.cfg.segment_size)
+        return eps_q, ids_slice
+
+    def _prepare(self, state: TrainState, batch: dict, eps_q, ids_slice):
+        """(device batch, eps_q, ids_slice, counts, target mel slices):
+        the draws as given and no counts at world size 1; with more than
+        one rank the draws not given come from ``global_draws`` and the
+        global counts from ``global_counts``."""
+        b = self._batch(batch)
+        if mesh.world_size() == 1:
+            return b, eps_q, ids_slice, None, None
+        eps_q, ids_slice = self.global_draws(state, b, eps_q, ids_slice)
+        ids_slice = torch.as_tensor(ids_slice, device=self.device).long()
+        return (b, eps_q, ids_slice,
+                *global_counts(self.cfg, self.stft, b, ids_slice))
+
     def generator_loss(self, state: TrainState, batch: dict, eps_q=None,
-                       ids_slice=None):
+                       ids_slice=None, generator=None):
         """-> (total, losses, aux) at ``state.step``'s optimizer step, with
-        the model in training mode; aux holds the generated and the real
-        slices and the item weights."""
-        cfg, b = self.cfg, self._batch(batch)
+        the model in training mode, its draws from ``generator`` (default
+        the state's); aux holds the generated and the real slices and the
+        item weights.  Under data parallelism every loss is the rank's
+        share of the global batch's."""
+        b, eps_q, ids_slice, counts, tgt = self._prepare(state, batch, eps_q,
+                                                         ids_slice)
+        terms, aux = self._forward(state, b, eps_q, ids_slice, generator,
+                                   counts, tgt)
+        return (*self._with_kl(state, terms, counts), aux)
+
+    def _with_kl(self, state: TrainState, terms: dict,
+                 counts: dict | None) -> tuple[torch.Tensor, dict]:
+        """(total, losses) from ``_forward``'s terms: the KL through its
+        schedule (held to ``kl_min`` globally, one collective under data
+        parallelism), its raw value as the metric "kl_v"."""
+        cfg = self.cfg
         step = state.step // max(cfg.accumulate_grad_batches, 1)
+        kl = terms["kl_v"]
+        kl_global = None if counts is None else mesh.global_sum(kl)
+        losses = {"kl_v": kl.detach(),
+                  "kl": L.kl_schedule(kl, step, cfg.kl_min,
+                                      cfg.kl_start_steps, cfg.lambda_kl,
+                                      kl_global, mesh.world_size()),
+                  **{k: v for k, v in terms.items() if k != "kl_v"}}
+        return sum(v for k, v in losses.items() if k != "kl_v"), losses
+
+    def _forward(self, state: TrainState, b: dict, eps_q, ids_slice,
+                 generator, counts: dict | None, tgt_slice):
+        """The training branch and every loss term but the KL's schedule
+        (the raw KL, with its gradient, under "kl_v"), on the device batch
+        ``b``; no collective.  -> (terms, aux)."""
+        cfg = self.cfg
+        generator = state.generator if generator is None else generator
+        step = state.step // max(cfg.accumulate_grad_batches, 1)
+        c = counts or {}
         self.model.train()
         spec = b.get("spec")
         if spec is None:
@@ -159,42 +273,46 @@ class TrainStep:
         w = b.get("item_weights")
         out = self.model(
             b["text_tokens"], b["note_pitch"], b["note_dur"], b["mel2ph"],
-            spk_id=b.get("spk_ids"), infer=False, generator=state.generator,
+            spk_id=b.get("spk_ids"), infer=False, generator=generator,
             f0=b.get("f0"), uv=b.get("uv"), spec=spec,
             lengths=b.get("mel_lengths"), item_weights=w,
             eps_q=None if eps_q is None else torch.as_tensor(
                 eps_q, device=self.device).float(),
             ids_slice=None if ids_slice is None else torch.as_tensor(
                 ids_slice, device=self.device),
-            spk_embed=b.get("spk_embed"))
-        losses = {"kl_v": out["kl"].detach(),
-                  "kl": L.kl_schedule(out["kl"], step, cfg.kl_min,
-                                      cfg.kl_start_steps, cfg.lambda_kl),
-                  **recon_losses(cfg, self.stft, b, out, w)}
+            spk_embed=b.get("spk_embed"), kl_count=c.get("frames"))
+        terms = {"kl_v": out["kl"],
+                 **recon_losses(cfg, self.stft, b, out, w, counts,
+                                tgt_slice)}
         seg, hop = cfg.segment_size, cfg.hop_size
         real = slice_segments(b["wavs"], out["ids_slice"] * hop, seg * hop)
         adv_gate = float(step >= cfg.disc_start_steps)
         if cfg.lambda_mel_adv > 0:
             _, fake_scores, fmap_r, fmap_g = self.disc(real, out["wav_out"])
-            losses["adv"] = L.generator_adv_loss(fake_scores, w) \
-                * cfg.lambda_mel_adv * adv_gate
-            losses["fm"] = L.feature_matching_loss(fmap_r, fmap_g, w) \
-                * cfg.lambda_fm * adv_gate
-        total = sum(v for k, v in losses.items() if k != "kl_v")
-        return total, losses, {"wav_out": out["wav_out"], "real": real,
-                               "item_weights": w}
+            terms["adv"] = L.generator_adv_loss(
+                fake_scores, w, c.get("items")) * cfg.lambda_mel_adv \
+                * adv_gate
+            terms["fm"] = L.feature_matching_loss(
+                fmap_r, fmap_g, w, c.get("items")) * cfg.lambda_fm * adv_gate
+        return terms, {"wav_out": out["wav_out"], "real": real,
+                       "item_weights": w}
 
     def __call__(self, state: TrainState, batch: dict, eps_q=None,
                  ids_slice=None) -> tuple[TrainState, dict]:
         cfg = self.cfg
         accum = max(cfg.accumulate_grad_batches, 1)
         opt_step = state.step // accum
-        total, losses, aux = remat(
+        b, eps_q, ids_slice, counts, tgt = self._prepare(state, batch, eps_q,
+                                                         ids_slice)
+        gen = state.generator if counts is None else rank_generator(
+            cfg.seed, state.step, mesh.rank(), self.device)
+        terms, aux = remat(
             cfg.remat_policy,
-            lambda: self.generator_loss(state, batch, eps_q, ids_slice),
-            state.generator)
+            lambda: self._forward(state, b, eps_q, ids_slice, gen, counts,
+                                  tgt), gen)
+        total, losses = self._with_kl(state, terms, counts)
         params_g = list(self.model.parameters())
-        grads_g = _grads(total, params_g)
+        grads_g = mesh.all_reduce_grads(_grads(total, params_g))
         gnorm = global_norm(grads_g)
         self.opt_g.step(params_g, grads_g, state.opt_state_g, accum)
 
@@ -205,19 +323,30 @@ class TrainStep:
 
             def disc_loss():
                 real_scores, fake_scores, _, _ = self.disc(real, fake)
-                return L.discriminator_loss(real_scores, fake_scores,
-                                            aux["item_weights"])
+                return L.discriminator_loss(
+                    real_scores, fake_scores, aux["item_weights"],
+                    None if counts is None else counts["items"])
 
-            loss_d = remat(cfg.remat_policy, disc_loss, state.generator)
+            loss_d = remat(cfg.remat_policy, disc_loss, gen)
             params_d = list(self.disc.parameters())
-            self.opt_d.step(params_d, _grads(loss_d, params_d),
+            self.opt_d.step(params_d,
+                            mesh.all_reduce_grads(_grads(loss_d, params_d)),
                             state.opt_state_d, accum)
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total_g"] = total.detach()
         metrics["disc"] = loss_d.detach()
-        metrics["gnorm_g"] = gnorm
+        metrics = _global_metrics(metrics)
+        metrics["gnorm_g"] = gnorm  # of the summed gradients: global
         state.step += 1
         return state, metrics
+
+
+def _global_metrics(metrics: dict) -> dict:
+    """Each rank's share of every metric summed over the ranks (one
+    collective); ``metrics`` itself without a process group."""
+    if not mesh.distributed():
+        return metrics
+    return dict(zip(metrics, mesh.global_sums(list(metrics.values()))))
 
 
 def _grads(loss: torch.Tensor, params: list) -> list[torch.Tensor]:
@@ -254,8 +383,10 @@ class EvalStep:
     The posterior noise ``eps_q`` and the slice starts ``ids_slice`` may be
     given; otherwise each call draws them from a CPU generator seeded 0 and
     moves them to the device, so a validation loss is the same at every
-    evaluation and on every device.  The model is back in training mode
-    afterwards."""
+    evaluation and on every device.  Under a process group each rank passes
+    its rows, the draws are made at the global batch's shape and the
+    rank's rows kept, and the metrics are summed over the ranks: the global
+    batch's.  The model is back in training mode afterwards."""
 
     def __init__(self, cfg: Config, model, device="cuda"):
         self.cfg = cfg
@@ -270,19 +401,24 @@ class EvalStep:
         device; the slice starts from the uniforms as the model draws them
         (``ops/masking.py::rand_slice_segments``)."""
         b, t = batch["mel2ph"].shape
+        total = b * mesh.world_size()
+        rows = mesh.host_batch_slice(total)
         gen = torch.Generator().manual_seed(0)
-        eps_q = torch.randn(b, t, self.cfg.hidden_size, generator=gen)
-        u = torch.rand(b, generator=gen).to(self.device)
-        lengths = (torch.full((b,), t, device=self.device)
-                   if self.cfg.slice_ref_padded else batch["mel_lengths"])
-        ids_max = (lengths.long() - self.cfg.segment_size + 1).clamp(min=1)
-        return eps_q.to(self.device), (u * ids_max.float()).long()
+        eps_q = torch.randn(total, t, self.cfg.hidden_size, generator=gen)
+        u = torch.rand(total, generator=gen)[rows].to(self.device)
+        return eps_q[rows].to(self.device), slice_starts(
+            u, None if self.cfg.slice_ref_padded else batch["mel_lengths"],
+            t, self.cfg.segment_size)
 
     @torch.no_grad()
     def __call__(self, batch: dict, eps_q=None, ids_slice=None) -> dict:
         cfg, b = self.cfg, device_batch(batch, self.device)
         if eps_q is None or ids_slice is None:
             eps_q, ids_slice = self.draws(b)
+        counts = tgt = None
+        if mesh.world_size() > 1:
+            counts, tgt = global_counts(cfg, self.stft, b, torch.as_tensor(
+                ids_slice, device=self.device).long())
         self.model.eval()
         try:
             spec = b.get("spec")
@@ -296,13 +432,14 @@ class EvalStep:
                 item_weights=w,
                 eps_q=torch.as_tensor(eps_q, device=self.device).float(),
                 ids_slice=torch.as_tensor(ids_slice, device=self.device),
-                spk_embed=b.get("spk_embed"))
+                spk_embed=b.get("spk_embed"),
+                kl_count=None if counts is None else counts["frames"])
         finally:
             self.model.train()
         m = {"kl": out["kl"] * cfg.lambda_kl,
-             **recon_losses(cfg, self.stft, b, out, w)}
+             **recon_losses(cfg, self.stft, b, out, w, counts, tgt)}
         m["total_g"] = sum(m.values())
-        return m
+        return _global_metrics(m)
 
 
 def make_eval_step(cfg: Config, model, device="cuda") -> EvalStep:

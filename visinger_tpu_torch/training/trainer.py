@@ -31,6 +31,15 @@ split into ``generated_{step}/`` with its RTF and objective-quality metrics
 the prior noise drawn from a CPU generator (seeded with the step, or 0 for
 the test) and moved to the device, so the card and the CPU see the same
 noise.
+
+Data parallelism (``parallel/``): under a process group every rank builds
+the same epoch plan and keeps its contiguous rows of each batch
+(``multihost.host_batch_slice``; the world size must divide
+``max_sentences``), on either data route; the step sums gradients and
+metrics over the ranks.  Only the primary rank writes: checkpoints (then a
+barrier, so every rank sees the file), ``log.jsonl`` and TensorBoard, the
+code snapshot, renders and the test split.  Every rank restores the same
+newest checkpoint on resume.
 """
 
 from __future__ import annotations
@@ -53,6 +62,8 @@ from visinger_tpu_torch.data.device_store import DeviceStore, gather_batch
 from visinger_tpu_torch.data.prefetch import prefetch
 from visinger_tpu_torch.models.factory import build_models, resolve_device
 from visinger_tpu_torch.ops.stft import STFTParams, log_mel_spectrogram
+from visinger_tpu_torch.parallel import mesh
+from visinger_tpu_torch.parallel.multihost import host_batch_slice, is_primary
 from visinger_tpu_torch.training.checkpoint import (AsyncCheckpointer,
                                                     restore_latest,
                                                     save_checkpoint,
@@ -154,11 +165,16 @@ class Trainer:
     (CUDA unless the caller asks for the CPU), from the binarized splits of
     ``cfg.binary_data_dir`` (or every ``cfg.binary_data_dirs``, which must
     share the first one's dictionaries), into ``work_dir`` (default
-    ``cfg.work_dir``)."""
+    ``cfg.work_dir``).  Under a process group it is one rank of the data
+    parallelism (the module docstring); ``device`` is the rank's own."""
 
     def __init__(self, cfg: Config, work_dir: str | None = None,
                  device="cuda"):
         self.device = resolve_device(device)
+        world = mesh.world_size()
+        if cfg.max_sentences % world:
+            raise ValueError(f"max_sentences {cfg.max_sentences} is not "
+                             f"divisible by the {world} ranks")
         self.cfg = cfg
         self.work_dir = work_dir or cfg.work_dir
         data_dir = (cfg.binary_data_dirs[0] if cfg.binary_data_dirs
@@ -171,7 +187,7 @@ class Trainer:
         self.model, self.disc = build_models(
             cfg, len(self.token_encoder), len(pitch_map), len(dur_map),
             device=self.device, seed=cfg.seed)
-        self.logger = MetricLogger(self.work_dir)
+        self.logger = MetricLogger(self.work_dir) if is_primary() else None
         self._png_skip_said = False
 
     def init_state(self) -> TrainState:
@@ -185,7 +201,8 @@ class Trainer:
         that the copy to it can be asynchronous."""
         pin = self.device.type == "cuda"
         for batch in ds.batches(**kw):
-            batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+            rows = host_batch_slice(len(batch["mel2ph"]))
+            batch = {k: torch.from_numpy(v[rows]) for k, v in batch.items()}
             yield {k: v.pin_memory() for k, v in batch.items()} if pin \
                 else batch
 
@@ -194,17 +211,18 @@ class Trainer:
                 for k, v in batch.items()}
 
     def _store_batches(self, store: DeviceStore, plans: list):
-        """The batches of ``plans`` gathered on the device; the plan's
-        indices go to the device in one copy."""
+        """The batches of ``plans`` gathered on the device (the rank's
+        rows of each); the plan's indices go to the device in one copy."""
         if not plans:
             return
         idx = torch.from_numpy(np.stack([p[0] for p in plans]))
         if self.device.type == "cuda":
             idx = idx.pin_memory()
         idx = idx.to(self.device, non_blocking=True)
+        rows = host_batch_slice(idx.shape[1])
         for i, (_, t_b, n_b) in enumerate(plans):
             yield gather_batch(store.arrays, idx[i], t_b, n_b,
-                               self.cfg.hop_size)
+                               self.cfg.hop_size, rows)
 
     def _valid_batches(self, valid_ds, valid_store, max_batches: int):
         if valid_store is not None:
@@ -225,7 +243,7 @@ class Trainer:
         max_updates = max_updates or cfg.max_updates
         train_ds = build_dataset(cfg, cfg.train_set_name)
         valid_ds = build_dataset(cfg, cfg.valid_set_name)
-        if cfg.save_codes:
+        if cfg.save_codes and is_primary():
             self._snapshot_code()
         state, start_step = restore_latest(self.work_dir, self.init_state())
         if start_step:
@@ -239,13 +257,19 @@ class Trainer:
                                      steps_per_epoch)
         ckpt_async = AsyncCheckpointer() if cfg.async_checkpoint else None
 
-        def save_ckpt(val_loss=None):
-            if ckpt_async is not None:
-                ckpt_async.save(self.work_dir, state, cfg.num_ckpt_keep,
-                                val_loss)
-            else:
-                save_checkpoint(self.work_dir, state, cfg.num_ckpt_keep,
-                                val_loss)
+        def save_ckpt(val_loss=None, last=False):
+            """Rank 0 writes; the last save is on disk before any rank
+            returns (a resume reads it)."""
+            if is_primary():
+                if ckpt_async is not None:
+                    ckpt_async.save(self.work_dir, state, cfg.num_ckpt_keep,
+                                    val_loss)
+                    if last:
+                        ckpt_async.wait()
+                else:
+                    save_checkpoint(self.work_dir, state, cfg.num_ckpt_keep,
+                                    val_loss)
+            mesh.barrier()
 
         use_store = cfg.device_resident_data
         est_mb = len(train_ds) * max(cfg.frame_buckets) * cfg.hop_size * 4 \
@@ -279,8 +303,9 @@ class Trainer:
 
         n_sanity = cfg.num_sanity_val_steps
         if n_sanity > 0 and not start_step:
-            print(f"| sanity val ({n_sanity} batches): "
-                  f"{eval_loss(n_sanity):.3f}")
+            sanity = eval_loss(n_sanity)
+            if is_primary():
+                print(f"| sanity val ({n_sanity} batches): {sanity:.3f}")
 
         # max_updates, val_check_interval and tb_log_interval count
         # optimizer steps; ``step`` counts batches
@@ -301,7 +326,8 @@ class Trainer:
                 try:
                     for batch in epoch_iter:
                         n_batches += 1
-                        if cfg.profile_dir and step == cfg.profile_start_step:
+                        if cfg.profile_dir and is_primary() \
+                                and step == cfg.profile_start_step:
                             profiler = self._start_profile()
                         if not use_store:
                             batch = self._to_device(batch)
@@ -325,10 +351,11 @@ class Trainer:
                             t_start, meters_n = now, 0
                         if boundary and opt_step % cfg.val_check_interval == 0:
                             val_loss = eval_loss(cfg.eval_max_batches)
-                            self.logger.log(opt_step, {"val_loss": val_loss},
-                                            "val")
+                            if self.logger is not None:
+                                self.logger.log(opt_step,
+                                                {"val_loss": val_loss}, "val")
                             save_ckpt(val_loss)
-                            if cfg.render_valid and \
+                            if cfg.render_valid and is_primary() and \
                                     opt_step % cfg.valid_infer_interval == 0:
                                 self.render_valid(state, valid_ds, opt_step)
                         if step >= max_updates * accum:
@@ -341,13 +368,12 @@ class Trainer:
                         "item has more than segment_size and at most "
                         "max_frames frames")
                 epoch += 1
-            save_ckpt()
-            if ckpt_async is not None:
-                ckpt_async.wait()  # the last write is on disk before return
+            save_ckpt(last=True)
         finally:
             if profiler is not None:
                 self._stop_profile(profiler, step)
-            self.logger.flush()
+            if self.logger is not None:
+                self.logger.flush()
         return state
 
     def _log_window(self, step: int, meters: dict, n: int, seconds: float):
@@ -356,12 +382,14 @@ class Trainer:
         meters."""
         names = list(meters)
         fetched = torch.stack([meters[k] for k in names]).cpu().tolist()
+        torch._foreach_zero_(list(meters.values()))
+        if self.logger is None:   # the meters are global: rank 0 logs them
+            return
         avg = {k: v / n for k, v in zip(names, fetched)}
         avg["steps_per_s"] = self.cfg.tb_log_interval / max(seconds, 1e-9)
         self.logger.log(step, avg)
         print(f"| step {step}: " + ", ".join(
             f"{k}={v:.3f}" for k, v in sorted(avg.items())))
-        torch._foreach_zero_(list(meters.values()))
 
     def _start_profile(self):
         acts = [torch.profiler.ProfilerActivity.CPU]
