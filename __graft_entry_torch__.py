@@ -4,7 +4,7 @@
 ``entry()`` returns a train-mode forward of the flagship ``visinger_csd``
 model on the card with example arguments; ``dryrun_multichip(n)`` starts
 n ranks of ``torch.distributed``, runs one data-parallel train step on a
-batch of n items of the tiny recipe (``dryrun_config``), then the
+batch of n items of the tiny recipe (``tiny_config``), then the
 time-sharded synthesis of one score over the same ranks.
 
     python __graft_entry_torch__.py            # entry() on the card
@@ -25,13 +25,6 @@ from visinger_tpu_torch.models.factory import build_model
 
 VOCABS = (60, 117, 98)        # as __graft_entry__.py's flagship example
 TINY_VOCABS = (40, 96, 64)    # as its dry run's tiny batch
-
-
-def dryrun_config():
-    """``tiny_config`` at the narrowest width the CUDA kernels take (K2:
-    channels a multiple of 32), so the dry run runs the same model on the
-    cards and on the CPU."""
-    return tiny_config().replace(hidden_size=32)
 
 
 def entry(device="cuda"):
@@ -86,7 +79,7 @@ def _dryrun_rank(rank: int, n: int, port: int, backend: str,
     # differ by float32 rounding only
     torch.backends.cudnn.allow_tf32 = False
     try:
-        cfg = dryrun_config()
+        cfg = tiny_config()
         t = pad_frames_for_mesh(64, n)
         batch = synthetic_batch(n, 12, t, *TINY_VOCABS,
                                 num_linear_bins=cfg.num_linear_bins,
@@ -131,7 +124,7 @@ def _dryrun_rank(rank: int, n: int, port: int, backend: str,
 
 
 def dryrun_multichip(n_devices: int) -> None:
-    """One data-parallel train step of ``dryrun_config`` on a batch of
+    """One data-parallel train step of ``tiny_config`` on a batch of
     ``n_devices`` items over ``n_devices`` ranks, then the sequence-parallel
     synthesis of one score over the same ranks; asserts finite metrics,
     step 1, and the same parameters and waveform on every rank.  NCCL on

@@ -2,8 +2,9 @@
 """Drive the PyTorch/H100 port of VISinger on one CUDA card: the GAN
 training step (the main path), synthesis, MIDI-to-waveform serving, the
 trainer, the command line's whole drive from a synthetic corpus to a
-tested voice, the serving export, and the scale-out (data-parallel
-training and time-sharded synthesis over ranks of ``torch.distributed``).
+tested voice, the serving export, the scale-out (data-parallel
+training and time-sharded synthesis over ranks of ``torch.distributed``),
+and the widths the kernels take padded, from a YAML experiment file.
 
     python3 chip_smoke.py              # the check (one card)
     python3 chip_smoke.py --profile    # also write torch.profiler summaries
@@ -143,10 +144,28 @@ Phases, each printing a line; any failure raises and exits nonzero:
      4), and the loop over both ranks' pieces in one process; ms of both
      kinds (not a claim: the ranks share one card);
      ``__graft_entry_torch__.entry()`` and ``dryrun_multichip(1)`` on NCCL;
- 15. a ``kernels`` JSON line (K1, K2, K3 and the bf16 builds of K1 and
+ 15. the widths (phase ``widths``): K1, K3 and their bf16 builds at head
+     widths 90, 50 and 8 ([4, 640, 180] and [4, 640, 16] with 2 heads,
+     [4, 640, 200] with 4), dropout off and 0.1, K3 the same bits on a
+     rerun, and K2 at C 180 (L=16, with its autograd gradients) and C 16
+     (L=4) against their plain versions, within the limits above, with
+     device, call and plain ms and the bounds; the padding kernel
+     (``csrc/pad_pack.cu``) bit for bit against plain zero padding on the
+     jobs of K1, K3 and K2 at dk 90 / C 180; then a YAML experiment file
+     written under ``build/widths/`` (``base_config`` the checkout's
+     ``configs/tpu_run.yaml``, ``hidden_size: 180``, ``num_heads: 2``)
+     driven through ``run.main``: ``synth-data``, ``binarize``, ``train``
+     4 steps, ``infer`` on a MIDI score, ``train`` 2 steps in bf16 (K1,
+     K3, K2 and the padding kernel launched, and K1-bf16 and K3-bf16 in
+     the bf16 run); one training step of that config and one waveform
+     from its step-4 checkpoint on the card and on the CPU; and
+     ``tiny_config`` (dk 8, C 16) on the card, one step and one synthesis
+     request against the CPU;
+ 16. a ``kernels`` JSON line (K1, K2, K3 and the bf16 builds of K1 and
      K3; K1, K2 and K1-bf16 with their launches in the export phase; K1,
      K3 and K2 with ``scale_out_launches``, per rank of a DP step and of an
-     SP call), then the final ``{"ok": true, ...}`` line.
+     SP call; every kernel with its ``widths`` rows and launches; the
+     padding kernel), then the final ``{"ok": true, ...}`` line.
 
 It imports the port only (no JAX) and exits nonzero, printing no result,
 without a CUDA device or outside a checkout of the repository.
@@ -182,6 +201,10 @@ TOL_CPU_REL = 1e-4
 # losses within 2e-7); a wrong kernel moves gradients by O(1) of their peak
 TOL_LOSS_REL = 1e-4
 TOL_GRAD_REL = 1e-2
+# an FFN ReLU input that the card and the CPU round to opposite signs: both
+# values within this share of the layer's largest input (float32 sums of
+# K*C products on each device, after the same upstream layers)
+TOL_FLIP = 1e-4
 # the attention key projection's bias moves every score of a row by the same
 # amount, which the softmax removes: its gradient is zero in exact arithmetic
 # and rounding noise on both devices, so it is held to a share of the
@@ -739,13 +762,13 @@ def stack_inputs(torch, gen, dev, lengths, t, c, n_layers, k):
 
 
 def check_wavenet_stack(torch, ws, dev, n_layers, label, grads=False,
-                        t=640, lengths=(640, 600, 517, 333)):
-    """K2 against its plain version at x [len(lengths), t, 192] with
+                        t=640, lengths=(640, 600, 517, 333), c=192):
+    """K2 against its plain version at x [len(lengths), t, c] with
     ``n_layers`` layers; with ``grads``, also the gradients of
     ``wavenet_stack`` (K2 forward, recomputed plain backward) against plain
     autograd."""
     gen = torch.Generator(device="cpu").manual_seed(2 + n_layers)
-    b, c, k = len(lengths), 192, 5
+    b, k = len(lengths), 5
     lengths = list(lengths)
     args = stack_inputs(torch, gen, dev, lengths, t, c, n_layers, k)
     out = ws.wavenet_stack_fwd(*args)
@@ -854,54 +877,114 @@ def training(torch, ra, ws, dev, profile: bool):
     return counts, med, peak
 
 
-def train_card_vs_cpu(torch, dev):
-    """One training step's losses and generator gradients, full width, B=1,
-    T=160, dropout 0: the same weights, posterior noise and slice on the
-    card and on the CPU."""
+def train_card_vs_cpu(torch, dev, cfg=None, tag="train_card_vs_cpu"):
+    """One training step's losses and generator gradients, B=1, T=160,
+    dropout 0: the same weights, posterior noise and slice on the card and
+    on the CPU; at full width unless ``cfg`` is given.  Prints phase
+    ``tag``; -> its row.
+
+    A ReLU input within rounding of 0 can take the other branch on one
+    device, which moves a row of the gradient of the conv before it (see
+    TOL_GRAD_REL).  So the FFN ReLUs' branches are recorded on the card, and
+    where the CPU's own step took another one the CPU step is run again on
+    the card's branches; every such flip must lie within TOL_FLIP of its
+    layer's peak on both devices (a wrong kernel moves inputs by O(1) and
+    flips far more), and the gradients are held against that run.  The
+    gradients against the CPU's own branches are printed beside them."""
     from visinger_tpu_torch.config import visinger_csd
     from visinger_tpu_torch.models.factory import build_models
+    from visinger_tpu_torch.modules import transformer
+    from visinger_tpu_torch.modules.common import dropout
     from visinger_tpu_torch.training.train_state import create_train_state
     from visinger_tpu_torch.training.train_step import make_train_step
 
-    cfg = visinger_csd().replace(p_dropout=0.0)
+    cfg = (cfg or visinger_csd()).replace(p_dropout=0.0)
     t = 160
     batch = training_batch(cfg, 1, 48, t, seed=4)
     gen = torch.Generator().manual_seed(6)
     eps_q = torch.randn(1, t, cfg.hidden_size, generator=gen)
     ids = torch.tensor([57])
-    got = {}
-    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
-        model, disc = build_models(cfg, *VOCABS, device=d, seed=0)
+    real_ffn = transformer.ConvFFN.forward
+
+    def step(d, branches=None):
+        """(losses, gradients, each FFN ReLU's input and mask) of one step
+        on ``d``; with ``branches``, the ReLUs take those masks."""
+        seen = []
+        given = iter(branches) if branches is not None else None
+
+        def ffn(self, x, x_mask, generator=None):
+            h = self.conv_1(x * x_mask)
+            seen.append((h.detach().cpu(), x_mask.detach().cpu() > 0))
+            if given is None:
+                x = torch.relu(h)
+            else:
+                x = h * next(given)[0].gt(0).to(h.device, h.dtype)
+            x = dropout(x, self.p_dropout, generator)
+            return self.conv_2(x * x_mask)
+
+        transformer.ConvFFN.forward = ffn
+        try:
+            model, disc = build_models(cfg, *VOCABS, device=d, seed=0)
+            state = create_train_state(model, disc, seed=0)
+            state.step = 1  # past the KL warm-up, so every loss is nonzero
+            train_step = make_train_step(cfg, model, disc, device=d)
+            total, losses, _ = train_step.generator_loss(
+                state, batch, eps_q=eps_q.to(d), ids_slice=ids.to(d))
+            grads = torch.autograd.grad(total, list(model.parameters()),
+                                        allow_unused=True)
+        finally:
+            transformer.ConvFFN.forward = real_ffn
         names = [n for n, _ in model.named_parameters()]
-        state = create_train_state(model, disc, seed=0)
-        state.step = 1  # past the KL warm-up, so every loss is nonzero
-        train_step = make_train_step(cfg, model, disc, device=d)
-        total, losses, _ = train_step.generator_loss(
-            state, batch, eps_q=eps_q.to(d), ids_slice=ids.to(d))
-        params = list(model.parameters())
-        grads = torch.autograd.grad(total, params, allow_unused=True)
-        got[name] = ({k: float(v.detach()) for k, v in losses.items()},
-                     [None if g is None else g.detach().cpu() for g in grads])
-    (loss_c, grad_c), (loss_r, grad_r) = got["cuda"], got["cpu"]
+        return (names, {k: float(v.detach()) for k, v in losses.items()},
+                [None if g is None else g.detach().cpu() for g in grads],
+                seen)
+
+    names, loss_c, grad_c, card_relu = step(dev)
+    _, loss_r, grad_r, cpu_relu = step(torch.device("cpu"))
+    flips = []
+    for i, ((h_c, valid), (h_r, _)) in enumerate(zip(card_relu, cpu_relu)):
+        diff = ((h_c > 0) != (h_r > 0)) & valid.expand_as(h_c)
+        if diff.any():
+            peak = float(h_r.abs().max())
+            flips.append({"ffn_call": i, "flips": int(diff.sum()),
+                          "max_abs_input_of_peak": max(
+                              float(h_c[diff].abs().max()),
+                              float(h_r[diff].abs().max())) / peak})
+    own_branches = None
+    if flips:
+        own_branches = grad_errors(torch, names, grad_c, grad_r)[0]
+        _, loss_r, grad_r, _ = step(torch.device("cpu"), card_relu)
     loss_err = {k: abs(loss_c[k] - loss_r[k]) / max(abs(loss_r[k]), 1e-12)
                 for k in loss_r}
     grad_err, zero_noise, gmax, failures = grad_errors(torch, names, grad_c,
                                                        grad_r)
     worst = sorted(grad_err, key=grad_err.get, reverse=True)[:5]
-    phase("train_card_vs_cpu", frames=t, losses=loss_r,
-          loss_rel_err=loss_err, max_loss_rel_err=max(loss_err.values()),
-          max_grad_err_of_peak=grad_err[worst[0]],
-          median_grad_err_of_peak=sorted(grad_err.values())[
-              len(grad_err) // 2],
-          grads_over_1e_3=sum(e > 1e-3 for e in grad_err.values()),
-          grad_tensors=len(grad_err),
-          worst_grads={n: grad_err[n] for n in worst},
-          max_zero_grad_noise=max(zero_noise.values()), grad_peak=gmax,
-          loss_tol=TOL_LOSS_REL, grad_tol=TOL_GRAD_REL,
-          zero_grad_tol=TOL_ZERO_GRAD)
+    row = dict(frames=t, hidden_size=cfg.hidden_size,
+               num_heads=cfg.num_heads, losses=loss_r,
+               loss_rel_err=loss_err,
+               max_loss_rel_err=max(loss_err.values()),
+               max_grad_err_of_peak=grad_err[worst[0]],
+               median_grad_err_of_peak=sorted(grad_err.values())[
+                   len(grad_err) // 2],
+               grads_over_1e_3=sum(e > 1e-3 for e in grad_err.values()),
+               grad_tensors=len(grad_err),
+               worst_grads={n: grad_err[n] for n in worst},
+               max_zero_grad_noise=max(zero_noise.values()), grad_peak=gmax,
+               loss_tol=TOL_LOSS_REL, grad_tol=TOL_GRAD_REL,
+               zero_grad_tol=TOL_ZERO_GRAD, relu_flips=flips,
+               flip_tol=TOL_FLIP)
+    if own_branches is not None:
+        own = sorted(own_branches, key=own_branches.get, reverse=True)[:5]
+        row["own_branches_worst_grads"] = {n: own_branches[n] for n in own}
+    phase(tag, **row)
+    failures += [f"ReLU flip {f} beyond rounding of 0 (> {TOL_FLIP} of its "
+                 f"layer's peak)" for f in flips
+                 if f["max_abs_input_of_peak"] > TOL_FLIP]
     failures += [f"loss {k}: rel err {e} > {TOL_LOSS_REL}"
                  for k, e in loss_err.items() if e > TOL_LOSS_REL]
-    check(not failures, "card vs CPU training: " + "; ".join(failures[:5]))
+    check(not failures, f"card vs CPU training ({tag}): "
+          + "; ".join(failures[:5]))
+    return row
 
 
 def grad_errors(torch, names, got, ref):
@@ -1012,14 +1095,24 @@ def synthesis(torch, ra, ws, dev, profile: bool):
         group, _ = collate(requests[:4])
         profile_run(torch, lambda: synth.synthesize(group), "synthesis")
 
-    # one short request on the card and on the CPU: same weights, same eps
+    wav_card_vs_cpu(torch, cfg, synth.model, model_cpu, dev)
+    return counts
+
+
+def wav_card_vs_cpu(torch, cfg, model_dev, model_cpu, dev,
+                    tag="card_vs_cpu") -> dict:
+    """One short request (48 tokens, 160 frames) through ``infer_prior``
+    and ``decode_frames`` on the card and on the CPU: the same weights and
+    the same noise; the waveforms within TOL_CPU_REL of the CPU's peak."""
+    from visinger_tpu_torch.data.synthetic import synthetic_batch
+
     short = synthetic_batch(1, 48, 160, *VOCABS, hop_size=cfg.hop_size,
                             seed=4)
     keys = ("text_tokens", "note_pitch", "note_dur", "mel2ph", "spk_ids")
     eps = torch.randn(1, 160, cfg.hidden_size,
                       generator=torch.Generator().manual_seed(5))
     wavs = {}
-    for name, model, d in (("cuda", synth.model, dev),
+    for name, model, d in (("cuda", model_dev, dev),
                            ("cpu", model_cpu, torch.device("cpu"))):
         t = {k: torch.from_numpy(short[k]).long().to(d) for k in keys}
         with torch.no_grad():
@@ -1033,10 +1126,11 @@ def synthesis(torch, ra, ws, dev, profile: bool):
     tol = TOL_CPU_REL * peak
     check(bool(torch.isfinite(wavs["cuda"]).all()), "short request non-finite")
     check(peak > 0, "short request silent")
-    check(err <= tol, f"card vs CPU wav max abs err {err} > {tol}")
-    phase("card_vs_cpu", shape=list(wavs["cuda"].shape), max_abs_err=err,
-          tol=tol, wav_abs_max=peak)
-    return counts
+    check(err <= tol, f"{tag}: card vs CPU wav max abs err {err} > {tol}")
+    row = dict(shape=list(wavs["cuda"].shape), max_abs_err=err, tol=tol,
+               wav_abs_max=peak)
+    phase(tag, **row)
+    return row
 
 
 # the lyrics of the MIDI scores: Hangul syllables with and without a coda
@@ -2902,6 +2996,343 @@ def scale_out(torch, ra, ws, dev, root: Path) -> dict:
                                  for name, r in ranks[0]["sp"].items()}}
 
 
+# phase widths: head widths that are not a multiple of 8 and channel counts
+# that are not a multiple of 32, which K1, K3 and K2 take zero-padded on the
+# card (ops/pad_pack.py), as the TPU kernels take any dk <= 128 and any C.
+# K1 and K3, float32 and bf16: (label, T, C, heads)
+WIDTH_ATTN = (("dk 90", 640, 180, 2), ("dk 50", 640, 200, 4),
+              ("dk 8", 640, 16, 2))
+# K2: (label, C, layers, with its autograd gradients)
+WIDTH_STACK = (("c180", 180, 16, True), ("c16", 16, 4, False))
+WIDTH_LENGTHS = [640, 600, 517, 333]
+# the experiment file: the tpu_run demo at dk 90 and C 180
+WIDTH_HIDDEN, WIDTH_HEADS = 180, 2
+WIDTH_KERNELS = ("rel_attention_fwd", "rel_attention_bwd",
+                 "rel_attention_bf16_fwd", "rel_attention_bf16_bwd")
+
+
+def width_counts(ra, ws, pp) -> dict:
+    return {**bf16_counts(ra, ws), "pad_pack": pp.launches}
+
+
+def zero_width_counts(ra, ws, pp) -> None:
+    zero_counts(ra, ws)
+    pp.launches = 0
+
+
+def check_width_attention(torch, ra, dev) -> dict:
+    """K1 and K3, float32 and bf16, at every ``WIDTH_ATTN`` head width
+    against their plain versions on the same inputs, dropout off and 0.1
+    (the float32 builds within TOL_KERNEL, the bf16 builds within one bf16
+    ulp of the peak and the emb gradients within TOL_BF16_EMB, the row
+    statistics within TOL_STATS_REL), K3 the same bits on a rerun; with
+    dropout off the device and call ms of the wrapper (its padding launches
+    included) beside the plain version's, and the bounds of the function at
+    its real width.  -> {kernel name: [rows]}."""
+    gen = torch.Generator(device="cpu").manual_seed(31)
+    window = 4
+    seed = torch.tensor([31337], dtype=torch.int32, device=dev)
+    names = ("dq", "dk", "dv", "d_emb_rel_k", "d_emb_rel_v")
+    rows = {name: [] for name in WIDTH_KERNELS}
+    lengths = WIDTH_LENGTHS
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    for label, t, c, heads in WIDTH_ATTN:
+        dk = c // heads
+        base = [torch.randn(len(lengths), t, c, generator=gen).to(dev)
+                for _ in range(4)]
+        ek, ev = (torch.randn(2 * window + 1, dk, generator=gen).mul(
+            dk ** -0.5).to(dev) for _ in range(2))
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            q, k, v, g = (a.to(dtype) for a in base)
+            sfx = "_bf16" if bf16 else ""
+            for rate in (0.0, 0.1):
+                kw = dict(window=window, scale=dk ** -0.5, seed=seed,
+                          rate=rate)
+                out, stats = ra.rel_attention_fwd(q, k, v, ek, ev, lens, **kw)
+                ref, ref_stats = ra.rel_attention_plain(
+                    q, k, v, ek, ev, lens, **kw, with_stats=True)
+                got = ra.rel_attention_bwd(q, k, v, ek, ev, lens, g, out,
+                                           stats, **kw)
+                again = ra.rel_attention_bwd(q, k, v, ek, ev, lens, g, out,
+                                             stats, **kw)
+                want = ra.rel_attention_bwd_plain(q, k, v, ek, ev, lens, g,
+                                                  **kw)
+                torch.cuda.synchronize()
+                what = (f"widths K1/K3{sfx.replace('_', '-')} {label} rate "
+                        f"{rate}")
+                check(out.dtype == dtype and bool(torch.isfinite(
+                    out.float()).all()), f"{what}: output {out.dtype}, or "
+                      "non-finite")
+                serr = stats_err(stats, ref_stats)
+                check(serr <= TOL_STATS_REL, f"{what}: stats err {serr} > "
+                      f"{TOL_STATS_REL}")
+                abs_err = float((out.float() - ref.float()).abs().max())
+                fwd_row = {"shape": f"[{len(lengths)}, {t}, {c}] {label}, "
+                                    f"{heads} heads", "dropout": rate,
+                           "max_abs_err": abs_err, "stats_err": serr}
+                if bf16:
+                    err = bf16_err(out, ref)
+                    fwd_row["err_of_peak"] = err
+                    check(err <= TOL_BF16_REL, f"{what}: K1 err {err} of "
+                          f"the peak > {TOL_BF16_REL}")
+                    errs = {n: bf16_err(a, r)
+                            for n, a, r in zip(names, got, want)}
+                    tols = [TOL_BF16_REL] * 3 + [TOL_BF16_EMB] * 2
+                else:
+                    check(abs_err <= TOL_KERNEL, f"{what}: K1 max abs err "
+                          f"{abs_err} > {TOL_KERNEL}")
+                    errs = {n: float((a - r).abs().max())
+                            for n, a, r in zip(names, got, want)}
+                    tols = [TOL_KERNEL] * 5
+                for (n, a, b), tol in zip(zip(names, got, again), tols):
+                    check(bool(torch.isfinite(a.float()).all()),
+                          f"{what}: {n} non-finite")
+                    check(errs[n] <= tol, f"{what}: {n} err {errs[n]} > "
+                          f"{tol}")
+                    check(torch.equal(a, b), f"{what}: {n} differs between "
+                          "two runs on the same inputs")
+                bwd_row = {"shape": fwd_row["shape"], "dropout": rate,
+                           "max_abs_err": max(
+                               float((a.float() - r.float()).abs().max())
+                               for a, r in zip(got, want)),
+                           ("errs_of_peak" if bf16 else "errs"): errs,
+                           "bit_identical_rerun": True}
+                if rate == 0.0:
+                    fl, nb = k1_work(lengths, t, c, heads, window)
+                    fl3, nb3 = k3_work(lengths, t, c, heads, window)
+                    bound = bounds_bf16 if bf16 else bounds
+                    scale = 2 if bf16 else 1   # bf16 q, k, v, g, out, grads
+                    fwd_row.update(
+                        **timings(torch, lambda: ra.rel_attention_fwd(
+                            q, k, v, ek, ev, lens, **kw),
+                            lambda: ra.rel_attention_plain(
+                                q, k, v, ek, ev, lens, **kw)),
+                        **bound(fl, nb / scale), gflop=fl / 1e9)
+                    bwd_row.update(
+                        **timings(torch, lambda: ra.rel_attention_bwd(
+                            q, k, v, ek, ev, lens, g, out, stats, **kw),
+                            lambda: ra.rel_attention_bwd_plain(
+                                q, k, v, ek, ev, lens, g, **kw)),
+                        **bound(fl3, nb3 / scale), gflop=fl3 / 1e9)
+                phase(f"widths_k1{sfx}", **fwd_row)
+                phase(f"widths_k3{sfx}", **bwd_row)
+                rows[f"rel_attention{sfx}_fwd"].append(fwd_row)
+                rows[f"rel_attention{sfx}_bwd"].append(bwd_row)
+    return rows
+
+
+def check_pad_pack(torch, ra, ws, pp, dev) -> list:
+    """The padding kernel against its plain version (the same zero pad in
+    plain PyTorch; bit for bit, it copies) on the jobs of the main path at
+    dk 90 and C 180: K1's q, k, v and emb tables at [4, 640, 180], K3's
+    q, k, v, tables, g and out, their cuts back, and K2's x and weights at
+    L = 16; device ms beside the plain version's and the bytes bound."""
+    gen = torch.Generator(device="cpu").manual_seed(37)
+    b, t, c, heads, window, n_layers, k = 4, 640, 180, 2, 4, 16, 5
+    dk = c // heads
+    big = [torch.randn(b, t, c, generator=gen).to(dev) for _ in range(5)]
+    emb = [torch.randn(2 * window + 1, dk, generator=gen).to(dev)
+           for _ in range(2)]
+    x, w_in, b_in, w_rs, b_rs, g_bias, _ = stack_inputs(
+        torch, gen, dev, WIDTH_LENGTHS, t, c, n_layers, k)
+    g_all = (b_in[None] + g_bias).contiguous()
+    padded = ra.pad_heads(big[:3] + emb, heads, dk)
+    cases = (("K1 inputs, dk 90", ra.head_jobs(big[:3] + emb, heads, dk),
+              False),
+             ("K3 inputs, dk 90", ra.head_jobs(big + emb, heads, dk), False),
+             ("K3 results cut, dk 96 -> 90",
+              ra.head_jobs(padded, heads, dk, unpack=True), True),
+             ("K2 inputs, C 180 L 16",
+              ws.channel_jobs(x, w_in, g_all, w_rs, b_rs), False))
+    rows = []
+    for label, jobs, unpack in cases:
+        got = pp.pack(jobs, unpack)
+        want = [pp.pack_plain(a, dims, shape, unpack)
+                for a, dims, shape in jobs]
+        torch.cuda.synchronize()
+        for a, r in zip(got, want):
+            check(a.shape == r.shape and torch.equal(a, r),
+                  f"pad_pack {label}: differs from its plain version")
+        nbytes = sum(a.numel() * a.element_size() for a, _, _ in jobs) + sum(
+            r.numel() * r.element_size() for r in want)
+        times = timings(torch, lambda: pp.pack(jobs, unpack),
+                        lambda: [pp.pack_plain(a, dims, shape, unpack)
+                                 for a, dims, shape in jobs])
+        row = {"shape": label, "jobs": len(jobs), "max_abs_err": 0.0,
+               **times, "bound_ms": nbytes / HBM_RATE * 1e3,
+               "bound_by": "bytes", "mbytes": nbytes / 1e6}
+        phase("widths_pad_pack", **row)
+        rows.append(row)
+    # the round trip: padded and cut back gives the inputs
+    back = ra.pad_heads(padded, heads, dk, unpack=True)
+    check(all(torch.equal(a, r) for a, r in zip(back, big[:3] + emb)),
+          "pad_pack: pad then cut does not give the inputs back")
+    return rows
+
+
+def widths(torch, ra, ws, pp, dev, root: Path) -> dict:
+    """Phase ``widths``: the kernels at head widths that are not a multiple
+    of 8 and channel counts that are not a multiple of 32 (``WIDTH_ATTN``,
+    ``WIDTH_STACK``, the padding kernel), then an experiment file
+    written under ``root`` (``base_config`` the repository's
+    ``configs/tpu_run.yaml``, ``hidden_size`` 180, ``num_heads`` 2: dk 90,
+    C 180) driven through ``run.main``: ``synth-data``, ``binarize``,
+    ``train`` for 4 steps, ``infer`` on one MIDI score and 2 ``train``
+    steps with bf16 compute, the launches of each counted; one training
+    step and one waveform from the step-4 checkpoint on the card and on
+    the CPU; then ``tiny_config`` (hidden 16: dk 8, C 16) on the card, one
+    training step and one synthesis request against the CPU.  -> the rows
+    and launch counts for the kernels line."""
+    import os
+
+    import numpy as np
+
+    from visinger_tpu_torch import run
+    from visinger_tpu_torch.config import tiny_config
+    from visinger_tpu_torch.config_loader import load_config
+    from visinger_tpu_torch.data.dataset import build_dataset
+    from visinger_tpu_torch.models.factory import build_model
+    from visinger_tpu_torch.training import trainer as trainer_mod
+    from visinger_tpu_torch.training.checkpoint import load_checkpoint
+    from visinger_tpu_torch.utils.audio.io import load_wav
+
+    t_phase = time.perf_counter()
+    rows = check_width_attention(torch, ra, dev)
+    rows["wavenet_stack_fwd"] = [
+        check_wavenet_stack(torch, ws, dev, n_layers, f"widths_{label}",
+                            grads=grads, c=c)
+        for label, c, n_layers, grads in WIDTH_STACK]
+    rows["pad_pack"] = check_pad_pack(torch, ra, ws, pp, dev)
+    kernels_s = time.perf_counter() - t_phase
+
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    exp = root / "widths.yaml"
+    base = str(ROOT / "configs" / "tpu_run.yaml").replace("'", "''")
+    exp.write_text(f"# the tpu_run demo at head width 90 and 180 channels\n"
+                   f"base_config: '{base}'\n"
+                   f"hidden_size: {WIDTH_HIDDEN}\n"
+                   f"num_heads: {WIDTH_HEADS}  # dk 90\n")
+    cfg = load_config(str(exp))
+    check((cfg.hidden_size, cfg.num_heads, cfg.frame_buckets)
+          == (WIDTH_HIDDEN, WIDTH_HEADS, (800,)),
+          f"widths: the experiment file gave {cfg.hidden_size}, "
+          f"{cfg.num_heads}, {cfg.frame_buckets}")
+    counts = {}
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        run.main(["synth-data", "--config", str(exp)])
+        out, _ = captured(lambda: run.main(["binarize", "--config",
+                                            str(exp)]))
+        check(out["counts"] == PIPELINE_SPLITS,
+              f"widths: binarized {out['counts']} != {PIPELINE_SPLITS}")
+        (root / "scores").mkdir()
+        score = write_scores(root / "scores", cfg, seed=5)["short"]
+        for name, argv, steps in (
+                ("train", ["train", "-hp", "max_updates=4"], 4),
+                ("infer", ["infer", "--midi", score, "--out", "short.wav"],
+                 0),
+                ("train_bf16", ["train", "-hp",
+                                "compute_dtype=bfloat16,max_updates=2,"
+                                "work_dir=checkpoints/widths_bf16"], 2)):
+            torch.cuda.synchronize()
+            zero_width_counts(ra, ws, pp)
+            result = run.main([*argv, "--config", str(exp), "--device",
+                               str(dev)])
+            torch.cuda.synchronize()
+            counts[name] = width_counts(ra, ws, pp)
+            if steps:
+                check(result.step == steps, f"widths: {name} ended at step "
+                      f"{result.step}, not {steps}")
+            del result
+    finally:
+        os.chdir(cwd)
+    f32 = ("rel_attention_fwd", "rel_attention_bwd", "wavenet_stack_fwd",
+           "pad_pack")
+    bf16 = ("rel_attention_bf16_fwd", "rel_attention_bf16_bwd",
+            "wavenet_stack_fwd", "pad_pack")
+    for name, need in (("train", f32), ("train_bf16", bf16),
+                       ("infer", ("rel_attention_fwd", "wavenet_stack_fwd",
+                                  "pad_pack"))):
+        check(all(counts[name][k] > 0 for k in need),
+              f"widths: {name} launches {counts[name]} miss one of {need}")
+    check(counts["train"]["rel_attention_bf16_fwd"] == 0
+          and counts["train_bf16"]["rel_attention_fwd"] == 0,
+          f"widths: float32 and bf16 launches mixed: {counts}")
+    wav, _ = load_wav(str(root / "short.wav"))
+    check(len(wav) > 0 and np.isfinite(wav).all()
+          and float(np.std(wav)) > 1e-4,
+          f"widths: infer wrote {len(wav)} samples, std {np.std(wav)}")
+
+    # card against CPU: one training step at dk 90 / C 180 (full depth),
+    # one waveform from the step-4 checkpoint
+    step_row = train_card_vs_cpu(torch, dev, cfg,
+                                 tag="widths_train_card_vs_cpu")
+    ckpt = load_checkpoint(str(root / cfg.work_dir / "model_ckpt_steps_4.pt"))
+    data_cfg = cfg.replace(binary_data_dir=str(root / cfg.binary_data_dir))
+    first = next(build_dataset(data_cfg, cfg.test_set_name).batches(
+        max_sentences=1, shuffle=False, pad_to_max_sentences=False))
+    n_frames = int(first["mel_lengths"][0])
+    vocabs = [len(json.loads((root / cfg.binary_data_dir / f"{n}.json"
+                              ).read_text()))
+              for n in ("phone_set", "pitch_map", "dur_map")]
+    wavs = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        model = build_model(cfg, *vocabs, device=d)
+        model.load_state_dict(ckpt["model"])
+        w, _ = trainer_mod.synthesize(model, first, 0)
+        wavs[name] = w[0, : n_frames * cfg.hop_size].cpu().numpy()
+        del model
+    del ckpt
+    wav_err = float(np.abs(wavs["cuda"] - wavs["cpu"]).max())
+    wav_peak = float(np.abs(wavs["cpu"]).max())
+    check(np.isfinite(wavs["cuda"]).all() and wav_peak > 0
+          and wav_err <= TOL_CPU_REL * wav_peak,
+          f"widths: card vs CPU test item {wav_err} > {TOL_CPU_REL} x peak "
+          f"{wav_peak}")
+    shutil.rmtree(root, ignore_errors=True)
+
+    # tiny_config on the card: dk 8 (K1, K3 unpadded) and C 16 (K2 padded)
+    tiny = tiny_config()
+    zero_width_counts(ra, ws, pp)
+    tiny_step = train_card_vs_cpu(torch, dev, tiny,
+                                  tag="tiny_train_card_vs_cpu")
+    model_cpu = flow_model(torch, tiny, *VOCABS)
+    model_dev = build_model(tiny, *VOCABS, device=dev)
+    model_dev.load_state_dict(model_cpu.state_dict())
+    tiny_wav = wav_card_vs_cpu(torch, tiny, model_dev, model_cpu, dev,
+                               tag="tiny_card_vs_cpu")
+    counts["tiny"] = width_counts(ra, ws, pp)
+    check(all(counts["tiny"][k] > 0 for k in f32[:3] + ("pad_pack",)),
+          f"widths: tiny_config launches {counts['tiny']}")
+    phase("widths", seconds=time.perf_counter() - t_phase,
+          kernel_checks_s=kernels_s, experiment=exp.name,
+          hidden_size=WIDTH_HIDDEN, num_heads=WIDTH_HEADS,
+          launches=counts, train_card_vs_cpu={
+              k: step_row[k] for k in ("max_loss_rel_err",
+                                       "max_grad_err_of_peak")},
+          card_vs_cpu_frames=n_frames, card_vs_cpu_max_abs_err=wav_err,
+          card_vs_cpu_peak=wav_peak, card_vs_cpu_tol=TOL_CPU_REL * wav_peak,
+          tiny_train_card_vs_cpu={k: tiny_step[k] for k in (
+              "max_loss_rel_err", "max_grad_err_of_peak")},
+          tiny_card_vs_cpu=tiny_wav)
+    return {"rows": rows, "launches": counts}
+
+
+def width_entry(rows: list, launches: dict, name: str) -> dict:
+    """The widths phase's rows of one kernel for the kernels line: each
+    shape's dropout-off times, bound and error, and the launches of the
+    experiment file's runs and of ``tiny_config``."""
+    keep = ("shape", "ms", "plain_ms", "call_ms", "plain_call_ms",
+            "bound_ms", "bound_by", "max_abs_err")
+    return {"widths": [{k: r[k] for k in keep if k in r} for r in rows
+                       if r.get("dropout", 0.0) == 0.0],
+            "widths_max_abs_err": max(r["max_abs_err"] for r in rows),
+            "widths_launches": {run: c[name] for run, c in launches.items()}}
+
+
 def ptxas_functions(log: str) -> list:
     """Each kernel's registers and spill bytes from ``nvcc -Xptxas -v``."""
     rows, cur = [], None
@@ -2979,6 +3410,7 @@ def main() -> int:
     from visinger_tpu_torch.config import soak_r5, visinger_csd
     from visinger_tpu_torch.infer.streaming import halo_frames
     from visinger_tpu_torch.ops import cuda_build
+    from visinger_tpu_torch.ops import pad_pack as pp
     from visinger_tpu_torch.ops import rel_attention as ra
     from visinger_tpu_torch.ops import wavenet_stack as ws
 
@@ -3055,6 +3487,7 @@ def main() -> int:
     shutil.rmtree(bf16_root, ignore_errors=True)
     export_counts = export_phase(torch, ra, ws, dev, ROOT / "build" / "export")
     scale_counts = scale_out(torch, ra, ws, dev, ROOT / "build" / "scale_out")
+    width_out = widths(torch, ra, ws, pp, dev, ROOT / "build" / "widths")
     k1_dp = next(r for r in k1_rows if r["shape"].endswith("dp rank"))
     k3_dp = next(r for r in k3_rows if r["shape"].endswith("dp rank")
                  and r["dropout"] > 0)
@@ -3184,6 +3617,27 @@ def main() -> int:
                           if r["dropout"] == 0.0}})
     next(k for k in kernels if k["name"] == "rel_attention_bf16_fwd")[
         "export_launches"] = export_counts["rel_attention_bf16_fwd"]
+    for k in kernels:
+        k.update(width_entry(width_out["rows"][k["name"]],
+                             width_out["launches"], k["name"]))
+    pad = width_out["rows"]["pad_pack"][0]     # K1's inputs at dk 90
+    kernels.append({
+        "name": "pad_pack", "route": "cuda",
+        "source": "visinger_tpu_torch/csrc/pad_pack.cu",
+        "replaces": "visinger_tpu/modules/transformer.py:98",
+        "launches": width_out["launches"]["train"]["pad_pack"],
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in width_out["rows"]["pad_pack"]),
+        "ms": pad["ms"], "plain_ms": pad["plain_ms"],
+        "call_ms": pad["call_ms"], "plain_call_ms": pad["plain_call_ms"],
+        "bound_ms": pad["bound_ms"], "bound_by": pad["bound_by"],
+        "library_ms": None, "shape": pad["shape"],
+        "also_replaces": "visinger_tpu/ops/pallas/wavenet_kernel.py:140",
+        "shapes": {r["shape"]: {k: r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "mbytes")}
+            for r in width_out["rows"]["pad_pack"]},
+        "widths_launches": {run: c["pad_pack"] for run, c in
+                            width_out["launches"].items()}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

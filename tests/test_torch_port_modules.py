@@ -297,15 +297,18 @@ def test_config_json_round_trip_and_overrides_match_jax():
 
 
 @pytest.mark.parametrize("hidden,heads,what", [
-    (192, 1, "head width 192"),     # dk above 128
-    (60, 2, "head width 30"),       # dk not a multiple of 8
-    (48, 2, "hidden_size 48"),      # dk 24 is fine, C % 32 is not
+    (192, 1, "head width 192"),     # dk above 128: the TPU kernel's limit
+    (60, 2, None),                  # dk 30: K1/K3 take it padded to 32
+    (48, 2, None),                  # C 48: K2 takes it padded to 64
+    (180, 2, None),                 # dk 90, C 180 (chip_smoke.py's widths)
     (18, 4, "not a multiple of num_heads")])
 def test_kernel_widths_refused_at_build_for_cuda(hidden, heads, what,
                                                  monkeypatch):
-    """K1/K3 take a head width that is a multiple of 8 and at most 128, K2
-    channels that are a multiple of 32: a CUDA build refuses other widths
-    before any weight is made; a CPU build runs them (plain versions)."""
+    """A CUDA build refuses only the widths the TPU kernels refuse too (a
+    head width above 128, channels not split into equal heads), before any
+    weight is made; it accepts every other head width and channel count
+    (the kernels take them zero-padded on the card); a CPU build runs them
+    (plain versions)."""
     from visinger_tpu_torch.config import check_supported
     from visinger_tpu_torch.infer.infer import TorchSynthesizer
     from visinger_tpu_torch.models.factory import build_model
@@ -313,26 +316,32 @@ def test_kernel_widths_refused_at_build_for_cuda(hidden, heads, what,
 
     cfg = port_config.tiny_config().replace(hidden_size=hidden,
                                             num_heads=heads)
-    with pytest.raises(NotImplementedError, match=what):
+    if what is None:
         check_supported(cfg, torch.device("cuda", 0))
-    with pytest.raises(NotImplementedError, match=what):
         check_supported(cfg, "cuda")
-    # the device check of the entry points stubbed: the width refusal
-    # comes before any tensor reaches the card
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError, match=what):
-        build_model(cfg, 20, 30, 25, device="cuda")
-    monkeypatch.undo()
+    else:
+        with pytest.raises(NotImplementedError, match=what):
+            check_supported(cfg, torch.device("cuda", 0))
+        with pytest.raises(NotImplementedError, match=what):
+            check_supported(cfg, "cuda")
+        # the device check of the entry points stubbed: the width refusal
+        # comes before any tensor reaches the card
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        with pytest.raises(NotImplementedError, match=what):
+            build_model(cfg, 20, 30, 25, device="cuda")
+        monkeypatch.undo()
     if hidden % heads:
         return
     check_supported(cfg, "cpu")
     model = build_model(cfg, 20, 30, 25, device="cpu")
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    for make in (lambda: TorchSynthesizer(cfg, model, device="cuda"),
-                 lambda: make_train_step(cfg, model, None, device="cuda")):
-        with pytest.raises(NotImplementedError, match=what):
-            make()
-    monkeypatch.undo()
+    if what is not None:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        for make in (lambda: TorchSynthesizer(cfg, model, device="cuda"),
+                     lambda: make_train_step(cfg, model, None,
+                                             device="cuda")):
+            with pytest.raises(NotImplementedError, match=what):
+                make()
+        monkeypatch.undo()
     tokens = torch.ones(1, 6, dtype=torch.long)
     mel2ph = torch.arange(1, 7).repeat_interleave(4)[None]
     with torch.no_grad():

@@ -70,14 +70,21 @@ def port_inputs(raw):
 
 @pytest.fixture(scope="module")
 def slice_pair():
-    jcfg = jax_tiny_config()
+    return make_slice_pair()
+
+
+def make_slice_pair(**widths):
+    """(jitted JAX apply, jitted decode, params, port model, batch) of the
+    tiny recipe with ``widths`` replaced, the same weights on both sides."""
+    jcfg = jax_tiny_config(**widths)
     raw = synthetic_batch(B, N, T, *VOCABS, jcfg.num_linear_bins,
                           jcfg.hop_size, seed=SEED)
     jmodel, disc = build_models(jcfg, *VOCABS)
     # the whole generator tree (train branch included), traced, not run
     shapes = jax.eval_shape(lambda: init_params(jcfg, jmodel, disc, raw)[0])
     params = fill_params(shapes, SEED)
-    port = build_model(tiny_config(), *VOCABS, device="cpu")
+    port = build_model(tiny_config().replace(**widths), *VOCABS,
+                       device="cpu")
     port.load_state_dict(params_from_jax(params), strict=True)
     # jitted applies for every prior and decode below: linen run eagerly
     # dispatches (and compiles) op by op, several times slower at this size
@@ -257,7 +264,9 @@ def test_port_imports_nothing_of_jax():
     module by name (``importlib``, ``__import__``), so every import is one
     of those statements; and every module of the package (``parallel/``
     among them), chip_smoke.py and __graft_entry_torch__.py import with
-    those packages blocked."""
+    those packages blocked; with them blocked, the port reads the
+    repository's experiment files (``configs/*.yaml``, whose chains name the
+    JAX package's defaults) and opens no file under ``visinger_tpu/``."""
     pkg = REPO / "visinger_tpu_torch"
     sources = sorted(pkg.rglob("*.py"))
     roots = [REPO / "chip_smoke.py", REPO / "__graft_entry_torch__.py"]
@@ -275,6 +284,18 @@ for name in {_BLOCKED!r}:
     sys.modules[name] = None
 for mod in {modules!r} + ["chip_smoke", "__graft_entry_torch__"]:
     importlib.import_module(mod)
+import builtins, glob, os
+from visinger_tpu_torch.config_loader import load_config
+opened, real_open = [], builtins.open
+def spy(file, *a, **k):
+    opened.append(os.path.abspath(file))
+    return real_open(file, *a, **k)
+builtins.open = spy
+for path in sorted(glob.glob("configs/*.yaml")):
+    load_config(path)
+builtins.open = real_open
+assert len(opened) > 6, opened
+assert not [p for p in opened if "/visinger_tpu/" in p], opened
 print("isolated-ok", len(sys.modules))
 """
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,

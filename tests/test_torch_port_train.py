@@ -403,16 +403,21 @@ def test_batch_dequantizes_int16_wavs_as_the_jax_step():
 
 @pytest.fixture(scope="module")
 def lockstep():
-    """One JAX/port pair for the training slice: the tiny recipe without
-    dropout (so the JAX step's only draws are the posterior noise and the
-    slice starts), with ``disc_start_steps=1`` (step 0 gates the
-    discriminator off, step 1 trains it) and one decoder resblock per
-    stage; params filled from a seed; the JAX step and training apply
-    jitted once."""
+    """One JAX/port pair for the training slice (``lockstep_pair``)."""
+    return lockstep_pair()
+
+
+def lockstep_pair(**widths):
+    """A JAX/port pair for the training slice: the tiny recipe (with
+    ``widths`` replaced) without dropout (so the JAX step's only draws are
+    the posterior noise and the slice starts), with ``disc_start_steps=1``
+    (step 0 gates the discriminator off, step 1 trains it) and one decoder
+    resblock per stage; params filled from a seed; the JAX step and
+    training apply jitted once."""
     # one resblock per upsampling stage: the decoder is the bulk of the JAX
     # step's compile time, and its parity is held in test_torch_port_slice
     small = dict(p_dropout=0.0, disc_start_steps=1, dec_kernel_size=(3,),
-                 dec_dilation_sizes=((1, 3),))
+                 dec_dilation_sizes=((1, 3),), **widths)
     jcfg = jax_tiny_config(**small)
     cfg = tiny_config().replace(**small)
     raw = synthetic_batch(2, 12, 64, *VOCABS, cfg.num_linear_bins,

@@ -1,5 +1,6 @@
-"""The ``visinger_csd``, ``tpu_run`` and ``soak_r5`` recipes as Python
-dataclasses (no YAML).
+"""The ``visinger_csd``, ``tpu_run``, ``soak_r5`` and ``parity_run``
+recipes as Python dataclasses (YAML experiment files are read into a
+``Config`` by ``config_loader.py``).
 
 Holds the values the synthesis path, the MIDI front end, serving, the
 training step, the trainer, the data pipeline (synthetic corpus,
@@ -9,7 +10,8 @@ JAX package's ``config/defaults/{visinger,csd,base}.yaml`` and
 against the YAML (for the keys the YAML leaves out, against the default the
 JAX code reads them with).  The TPU-only knobs
 (``attn_impl``, ``use_pallas``, ``decoder_time_fold``/``decoder_polyphase``,
-``grouped_conv_impl``) have no counterpart: the port has one path.
+``grouped_conv_impl``) have no counterpart: the port has one path, and
+``apply`` drops them (``UNREAD_KEYS``).
 
 ``frame_buckets`` and ``token_buckets`` are kept for their numerics, not for
 compiled programs: ``VISingerInfer`` pads each score to its bucket edges as
@@ -21,7 +23,7 @@ alone and equals the JAX package's for the same noise.
 ``compute_dtype`` "bfloat16" runs every layer in bf16 with float32
 parameters, LayerNorm statistics, softmax and distribution statistics, as
 the JAX package does; ``bf16_f32_islands`` names subsystems (``ISLANDS``)
-that stay float32.  Widths the CUDA kernels do not take raise
+that stay float32.  Widths the TPU kernels do not take either raise
 ``NotImplementedError`` when a model, a server or a train step is built
 for a CUDA device (``check_supported``).
 """
@@ -84,6 +86,24 @@ BINARIZATION_ARGS = Args(
     max_durations=8, pos_resolution=16, tempo_range=[16, 256], with_f0=True,
     min_sil_duration=0.0, dataset_range="index", train_range=[100, -1],
     test_range=[0, 50], valid_range=[50, 100])
+
+
+# Keys of the JAX package's experiment files that the port accepts and
+# drops (in a YAML or JSON file and in ``--hparams`` alike), each for a
+# stated reason; any other unknown key raises ``KeyError``.
+UNREAD_KEYS = frozenset({
+    # the TPU lowerings of one function, which the port computes one way:
+    # the attention kernel's route, the WaveNet kernel's, the decoder's
+    # time folding and polyphase upsampling, the grouped convolutions'
+    "attn_impl", "use_pallas", "decoder_time_fold", "decoder_polyphase",
+    "grouped_conv_impl",
+    # carried by the JAX package's defaults and read by no code of either
+    # package (the reference's names, kept there for its experiment files)
+    "ckpt_save_interval", "ds_workers", "endless_ds", "sort_by_len",
+    "frames_multiple", "print_nan_grads", "save_best", "valid_monitor_key",
+    "valid_monitor_mode", "gen_dir_name", "max_valid_sentences",
+    "max_valid_tokens", "min_frames", "max_input_tokens", "raw_sample_rate",
+    "max_wav_value", "f0_resolution", "pitch_key", "loud_norm"})
 
 
 @dataclass(frozen=True)
@@ -239,11 +259,14 @@ class Config:
 
     def apply(self, overrides: Mapping) -> "Config":
         """A copy with ``overrides`` (``parse_overrides``' nested dict)
-        applied: lists become tuples, a dict merges into an ``Args`` field;
-        an unknown key raises ``KeyError``."""
+        applied: lists become tuples, a dict merges into an ``Args`` field,
+        ``UNREAD_KEYS`` are dropped; another unknown key raises
+        ``KeyError``."""
         fields = {f.name for f in dataclasses.fields(self)}
         updates = {}
         for key, value in overrides.items():
+            if key in UNREAD_KEYS:
+                continue
             if key not in fields:
                 raise KeyError(f"unknown config key {key!r}")
             old = getattr(self, key)
@@ -316,9 +339,12 @@ REMAT_POLICIES = ("none", "full", "dots")
 
 def check_supported(cfg: Config, device=None) -> None:
     """Raise ``NotImplementedError``, for a build on a CUDA ``device``, for
-    a width the CUDA kernels do not take (K1 and K3: a head width that is
-    not a multiple of 8 or is above 128; K2: channels not a multiple of 32).
-    On the CPU the plain versions run any width.  ``sp_infer`` together
+    a width the TPU kernels do not take either: a ``hidden_size`` that is
+    not a multiple of ``num_heads``, or a head width above 128 (the TPU
+    kernel pads each head to one 128-lane slab,
+    ``visinger_tpu/modules/transformer.py:92-103``).  K1 and K3 take any
+    other head width and K2 any channel count (``ops/pad_pack.py`` pads
+    the widths their CUDA kernels do not take).  ``sp_infer`` together
     with ``stream_infer``, a ``compute_dtype`` other than float32 and
     bfloat16 and an unknown island raise ``ValueError``, a ``remat_policy``
     other than none, full and dots ``KeyError``."""
@@ -339,19 +365,17 @@ def check_supported(cfg: Config, device=None) -> None:
         # the JAX step looks the policy up in a dict of these names
         raise KeyError(f"remat_policy {cfg.remat_policy!r} is not one of "
                        f"{REMAT_POLICIES}")
-    unsupported = {}
-    if str(device).startswith("cuda"):
-        h, heads = cfg.hidden_size, cfg.num_heads
-        dk = h // heads
-        unsupported.update({
-            f"hidden_size {h} not a multiple of num_heads {heads}": h % heads,
-            f"head width {dk} on CUDA (K1/K3 take a multiple of 8, at most "
-            "128)": dk % 8 or dk > 128,
-            f"hidden_size {h} on CUDA (K2 takes a multiple of 32)": h % 32,
-        })
-    for name, on in unsupported.items():
-        if on:
-            raise NotImplementedError(f"{name} is not ported yet")
+    if not str(device).startswith("cuda"):
+        return
+    h, heads = cfg.hidden_size, cfg.num_heads
+    if h % heads:
+        raise NotImplementedError(
+            f"hidden_size {h} not a multiple of num_heads {heads}: the TPU "
+            "kernel splits the channels into equal heads as well")
+    if h // heads > 128:
+        raise NotImplementedError(
+            f"head width {h // heads} on CUDA: the TPU kernel takes at most "
+            "128, one 128-lane slab per head")
 
 
 def visinger_csd() -> Config:

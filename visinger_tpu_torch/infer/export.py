@@ -89,14 +89,19 @@ class _Program(torch.nn.Module):
 
 def _kernels(program) -> set:
     """The kernel libraries an exported program calls: K1's by the dtype of
-    its q, K2's."""
+    its q, K2's, and the padding kernel's for a head width or a channel
+    count that K1 or K2 take padded."""
     libs = set()
     for node in program.graph.nodes:
         if node.target is torch.ops.visinger_torch.rel_attention_fwd.default:
             bf16 = node.args[0].meta["val"].dtype == torch.bfloat16
             libs.add("rel_attention_bf16" if bf16 else "rel_attention")
+            if node.args[3].meta["val"].shape[1] % 8:     # emb_rel_k's dk
+                libs.add("pad_pack")
         elif node.target is torch.ops.visinger_torch.wavenet_stack.default:
             libs.add("wavenet_stack")
+            if node.args[0].meta["val"].shape[-1] % 32:   # x's channels
+                libs.add("pad_pack")
     return libs
 
 

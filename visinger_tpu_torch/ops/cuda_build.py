@@ -18,7 +18,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "visinger_tpu_torch"
-KERNELS = ("rel_attention", "rel_attention_bf16", "wavenet_stack")
+KERNELS = ("rel_attention", "rel_attention_bf16", "wavenet_stack",
+           "pad_pack")
 
 _libs: dict[str, ctypes.CDLL] = {}
 

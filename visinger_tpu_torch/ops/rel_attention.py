@@ -9,8 +9,12 @@ item's length gets no weight, and every masked row is the same mean of v —
 against a few MB of q/k/v).  Both run their products on the tensor cores in
 float32-accurate 3xTF32 (``csrc/tf32x3.cuh``); K1's key loop stops at each
 item's length and a tile of masked rows does no q·kᵀ; K3's scratch is sized
-by the CUDA source (``rel_attention_bwd_scratch``).  Both take a head width
-dk that is a multiple of 8, at most 128.
+by the CUDA source (``rel_attention_bwd_scratch``).  The kernels take a
+head width dk that is a multiple of 8, at most 128; the wrappers take any dk
+up to 128, as the TPU kernel does: another dk is zero-padded per head to
+the next multiple of 8 on the card (``ops/pad_pack.py``, one launch for the
+inputs and one for the results around each kernel launch), the softmax
+scale staying the caller's.
 
 Attention dropout keeps an entry when a counter-based hash of (seed, b·H+h,
 i, j) is at least ⌊rate·2³²⌋ and scales kept entries by 1/(1−rate); the hash
@@ -46,7 +50,7 @@ import ctypes
 
 import torch
 
-from visinger_tpu_torch.ops import cuda_build
+from visinger_tpu_torch.ops import cuda_build, pad_pack
 from visinger_tpu_torch.ops.masking import prefix_lengths
 
 MASK_VAL = -1e4
@@ -189,7 +193,9 @@ def _check(name, tensors, lengths, seed, rate, window):
                 or a.dtype != want:
             raise ValueError(f"{name}: {key} must be {want} on {q.device}, "
                              f"got {a.device} {a.dtype}")
-        if not a.is_contiguous() or a.data_ptr() % 16:
+        # the kernels copy 16 bytes at a time; an off-grid dk goes through
+        # the padding kernel, which copies one element at a time
+        if not a.is_contiguous() or (dk % 8 == 0 and a.data_ptr() % 16):
             raise ValueError(f"{name}: {key} must be contiguous and 16-byte "
                              f"aligned (the kernels copy 16 bytes at a time)")
         if key in ("k", "v", "g", "out") and a.shape != q.shape:
@@ -197,9 +203,9 @@ def _check(name, tensors, lengths, seed, rate, window):
                              f"{tuple(q.shape)}")
     if tensors["emb_rel_v"].shape != (m, dk) or m != 2 * window + 1:
         raise ValueError(f"{name}: emb tables must be [2w+1, dk]")
-    if c % dk or dk > 128 or dk % 8:
-        raise ValueError(f"{name}: C={c} must be heads*dk, dk a multiple of "
-                         f"8 and at most 128")
+    if c % dk or dk > 128:
+        raise ValueError(f"{name}: C={c} must be heads*dk, dk at most 128 "
+                         f"(the TPU kernel's one 128-lane slab per head)")
     if (lengths.device != q.device or lengths.dtype != torch.int32
             or lengths.shape != (b,) or not lengths.is_contiguous()):
         raise ValueError(f"{name}: lengths must be contiguous int32 [B] on "
@@ -211,6 +217,27 @@ def _check(name, tensors, lengths, seed, rate, window):
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"{name}: dropout rate {rate} outside [0, 1)")
     return b, t, c, dk
+
+
+def head_jobs(tensors, heads: int, dk: int, unpack: bool = False) -> list:
+    """``pad_pack`` jobs that zero-pad [B, T, H*dk] tensors and [2w+1, dk]
+    emb tables to the next head width the kernels take, a multiple of 8
+    (with ``unpack``, that cut them back from it)."""
+    dkp = pad_pack.padded(dk, 8)
+    width = dk if unpack else dkp
+    jobs = []
+    for a in tensors:
+        if a.dim() == 3:
+            jobs.append((a, (1, 1, heads, dk, dkp),
+                         (a.shape[0], a.shape[1], heads * width)))
+        else:
+            jobs.append((a, (1, 1, 1, dk, dkp), (a.shape[0], width)))
+    return jobs
+
+
+def pad_heads(tensors, heads: int, dk: int, unpack: bool = False) -> list:
+    """``head_jobs`` run in one launch of the padding kernel."""
+    return pad_pack.pack(head_jobs(tensors, heads, dk, unpack), unpack)
 
 
 def _drop_args(seed, rate):
@@ -233,6 +260,12 @@ def rel_attention_fwd(q, k, v, emb_rel_k, emb_rel_v, lengths, *,
     b, t, c, dk = _check("rel_attention_fwd", {
         "q": q, "k": k, "v": v, "emb_rel_k": emb_rel_k,
         "emb_rel_v": emb_rel_v}, lengths, seed, rate, window)
+    if dk % 8:
+        heads = c // dk
+        padded = pad_heads((q, k, v, emb_rel_k, emb_rel_v), heads, dk)
+        out, stats = rel_attention_fwd(*padded, lengths, window=window,
+                                       scale=scale, seed=seed, rate=rate)
+        return pad_heads((out,), heads, dk, unpack=True)[0], stats
     bf16 = q.dtype == torch.bfloat16
     out = torch.empty_like(q)
     stats = torch.empty(b, c // dk, t, 2, device=q.device)
@@ -284,6 +317,14 @@ def rel_attention_bwd(q, k, v, emb_rel_k, emb_rel_v, lengths, g, out, stats,
         lengths, seed, rate, window)
     if stats.shape != (b, c // dk, t, 2):
         raise ValueError("rel_attention_bwd: stats must be [B, H, T, 2]")
+    if dk % 8:
+        heads = c // dk
+        padded = pad_heads((q, k, v, emb_rel_k, emb_rel_v, g, out), heads,
+                            dk)
+        grads = rel_attention_bwd(*padded[:5], lengths, *padded[5:], stats,
+                                  window=window, scale=scale, seed=seed,
+                                  rate=rate)
+        return tuple(pad_heads(grads, heads, dk, unpack=True))
     if q.dtype == torch.bfloat16:
         return _bwd_bf16(q, k, v, emb_rel_k, emb_rel_v, lengths, g, stats,
                          window, scale, seed, rate)

@@ -16,6 +16,13 @@ on a CUDA tensor it launches the kernel (or raises), on a CPU tensor it runs
 differentiates ``wavenet_stack_plain`` recomputed from the saved inputs.
 ``launches`` counts stack calls on the card (each runs 2·L kernel
 launches).
+
+The kernel's tiles take C in multiples of 32; the wrapper takes any C, as
+the TPU kernel does: another C is zero-padded on the card to the next
+multiple of 32 (``ops/pad_pack.py``: x, the weights and biases with each
+gate half and each res/skip half padded on its own, so a padded channel
+gates to exactly 0), and the skip sum is cut back, one padding launch each
+side of the stack.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from visinger_tpu_torch.ops import cuda_build
+from visinger_tpu_torch.ops import cuda_build, pad_pack
 
 launches = 0
 
@@ -62,7 +69,6 @@ def wavenet_stack_plain(x, w_in, b_in, w_rs, b_rs, g_bias, mask):
 
 def wavenet_stack_fwd(x, w_in, b_in, w_rs, b_rs, g_bias, mask):
     """Launch the CUDA kernel (CUDA float32 tensors only)."""
-    global launches
     b, t, c = x.shape
     n_layers, k = w_in.shape[:2]
     args = {"x": x, "w_in": w_in, "b_in": b_in, "w_rs": w_rs, "b_rs": b_rs,
@@ -83,12 +89,47 @@ def wavenet_stack_fwd(x, w_in, b_in, w_rs, b_rs, g_bias, mask):
                              f"{tuple(a.shape)} != {shapes[name]}")
     if k % 2 == 0:
         raise ValueError("wavenet_stack_fwd: kernel size must be odd")
-    if c % 32:
-        raise ValueError(f"wavenet_stack_fwd: channels {c} must be a "
-                         f"multiple of 32")
     x, w_in, w_rs, b_rs, mask = (a.contiguous()
                                  for a in (x, w_in, w_rs, b_rs, mask))
     g_all = _bias(b_in, g_bias, b).contiguous()
+    if c % 32 == 0:
+        return _launch(x, mask, w_in, g_all, w_rs, b_rs)
+    x, w_in, g_all, w_rs, b_rs = pad_channels(x, w_in, g_all, w_rs, b_rs)
+    return cut_channels(_launch(x, mask, w_in, g_all, w_rs, b_rs), c)
+
+
+def channel_jobs(x, w_in, g_all, w_rs, b_rs) -> list:
+    """``pad_pack`` jobs that zero-pad x [B, T, C], w_in [L, K, C, 2C],
+    g_all [B, L, 2C], w_rs [L, C, 2C] and b_rs [L, 2C] to the next multiple
+    of 32 channels, each half of a 2C axis on its own."""
+    b, t, c = x.shape
+    n_layers, k = w_in.shape[:2]
+    cp = pad_pack.padded(c, 32)
+    halves = (1, 1, 2, c, cp)       # [.., 2C] -> [.., 2Cp], half by half
+    return [(x, (1, 1, 1, c, cp), (b, t, cp)),
+            (w_in, (c, cp, 2, c, cp), (n_layers, k, cp, 2 * cp)),
+            (g_all, halves, (b, n_layers, 2 * cp)),
+            (w_rs, (c, cp, 2, c, cp), (n_layers, cp, 2 * cp)),
+            (b_rs, halves, (n_layers, 2 * cp))]
+
+
+def pad_channels(x, w_in, g_all, w_rs, b_rs) -> list:
+    """``channel_jobs`` run in one launch of the padding kernel."""
+    return pad_pack.pack(channel_jobs(x, w_in, g_all, w_rs, b_rs))
+
+
+def cut_channels(out, c: int):
+    """The skip sum [B, T, Cp] cut back to its first ``c`` channels."""
+    b, t, cp = out.shape
+    return pad_pack.pack([(out, (1, 1, 1, c, cp), (b, t, c))],
+                         unpack=True)[0]
+
+
+def _launch(x, mask, w_in, g_all, w_rs, b_rs):
+    """One stack call of the kernel on checked, contiguous tensors."""
+    global launches
+    b, t, c = x.shape
+    n_layers, k = w_in.shape[:2]
     lib = cuda_build.load("wavenet_stack")
     fn = lib.wavenet_stack_fwd
     fn.restype = ctypes.c_int

@@ -34,8 +34,10 @@ when the ranks outnumber the cards (``multihost.choose_backend``).  Rank 0
 writes the config, the checkpoints, the logs and the test split.
 
 ``--config`` is a recipe name (``visinger_csd``, the default, ``tpu_run``,
-``soak_r5`` or ``parity_run``) or a JSON file of ``Config`` fields
-(``Config.to_dict``); ``--hparams`` overrides fields, with dotted keys
+``soak_r5`` or ``parity_run``), a JSON file of ``Config`` fields
+(``Config.to_dict``) or a YAML experiment file with ``base_config`` chains,
+as the JAX package's ``--config`` takes (``configs/*.yaml``;
+``config_loader.py``); ``--hparams`` overrides fields, with dotted keys
 into the argument dicts.
 With ``--exp_name`` the work dir is ``checkpoints/<exp_name>``, else the
 config's ``work_dir``.  Every command but ``test``, ``validate``,
@@ -68,9 +70,14 @@ def load_config_file(path: str) -> Config:
 
 
 def load_config_arg(spec: str) -> Config:
-    """A recipe by name, or a JSON file of ``Config`` fields."""
+    """A recipe by name, a YAML experiment file (``.yaml`` or ``.yml``) or
+    a JSON file of ``Config`` fields."""
     if spec in RECIPES:
         return RECIPES[spec]()
+    if spec.endswith((".yaml", ".yml")):
+        from visinger_tpu_torch.config_loader import load_config
+
+        return load_config(spec)
     return load_config_file(spec)
 
 
@@ -344,7 +351,8 @@ def main(argv=None):
         sp = sub.add_parser(name)
         sp.add_argument("--config", default="",
                         help="a recipe name (" + ", ".join(RECIPES)
-                             + ") or a JSON file of Config fields")
+                             + "), a YAML experiment file or a JSON "
+                             "file of Config fields")
         sp.add_argument("--exp_name", default="")
         sp.add_argument("-hp", "--hparams", default="")
         sp.add_argument("--reset", action="store_true",
