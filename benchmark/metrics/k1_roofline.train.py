@@ -1,0 +1,8 @@
+"""K1's least time (k1_work at the batches' real lengths, at its build's
+peak) over its device time in the traced training steps, in %."""
+
+import readers
+
+
+def read(reading):
+    return readers.roofline(reading, "train", readers.K1, readers.k1_least)
