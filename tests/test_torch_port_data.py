@@ -26,7 +26,7 @@ from visinger_tpu_torch.data.device_store import DeviceStore, gather_batch
 from visinger_tpu_torch.data.prefetch import prefetch
 from visinger_tpu_torch.data.record_store import RecordReader, RecordWriter
 from visinger_tpu_torch.utils.audio import pitch as ppitch
-from visinger_tpu_torch.utils.meters import AvgMeter, Timer
+from visinger_tpu_torch.utils.meters import AvgMeter, span
 
 import test_torch_port_cores  # noqa: F401  (shares the cores)
 
@@ -268,8 +268,12 @@ def test_meters():
     assert (m.sum, m.cnt, m.avg) == (17.0, 4, 4.25)
     m.reset()
     assert (m.sum, m.cnt, m.avg) == (0.0, 0, 0.0)
-    Timer.timer_map.pop("port_test", None)
-    for _ in range(2):
-        with Timer("port_test", sync=True):
-            time.sleep(0.01)
-    assert 0.02 <= Timer.timer_map["port_test"] < 1.0
+    assert span("port_test") is span("port_test", 1)  # off: one no-op
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(2):
+            with span("port_test"):
+                time.sleep(0.01)
+    took = [e.time_range.elapsed_us() / 1e6 for e in prof.events()
+            if e.name == "port_test"]
+    assert len(took) == 2 and 0.02 <= sum(took) < 1.0

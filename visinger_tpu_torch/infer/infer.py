@@ -49,6 +49,7 @@ from visinger_tpu_torch.parallel.sp import pad_frames_for_mesh, sp_decode
 from visinger_tpu_torch.utils.audio.align import get_note2dur
 from visinger_tpu_torch.utils.audio.spk_embed import SPK_EMBED_DIM
 from visinger_tpu_torch.utils.audio.io import save_wav
+from visinger_tpu_torch.utils.meters import span
 from visinger_tpu_torch.utils.midi import MidiFile
 from visinger_tpu_torch.utils.text.token_encoder import build_token_encoder
 
@@ -113,16 +114,18 @@ class TorchSynthesizer:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         wavs, group_seconds, audio_s = [], [], 0.0
         for at in range(0, len(requests), cfg.max_sentences):
-            batch, t_valid = collate(requests[at:at + cfg.max_sentences])
-            t0 = time.perf_counter()
-            wav = self.synthesize(batch, generator=gen)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            group_seconds.append(time.perf_counter() - t0)
-            wav = wav.cpu().numpy()
-            for i, tv in enumerate(t_valid):
-                wavs.append(wav[i, :tv * cfg.hop_size])
-                audio_s += tv * cfg.hop_size / cfg.sample_rate
+            with span("synth.call", f"{seed}:{at}"):
+                batch, t_valid = collate(requests[at:at + cfg.max_sentences])
+                t0 = time.perf_counter()
+                wav = self.synthesize(batch, generator=gen)
+                with span("synth.fetch"):
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    group_seconds.append(time.perf_counter() - t0)
+                    wav = wav.cpu().numpy()
+                for i, tv in enumerate(t_valid):
+                    wavs.append(wav[i, :tv * cfg.hop_size])
+                    audio_s += tv * cfg.hop_size / cfg.sample_rate
         return SynthesisResult(wavs, sum(group_seconds) / max(audio_s, 1e-9),
                                group_seconds)
 

@@ -34,6 +34,7 @@ from visinger_tpu_torch.modules.flow import ResidualCouplingBlock
 from visinger_tpu_torch.modules.hifigan import HiFiGANGenerator
 from visinger_tpu_torch.ops.masking import rand_slice_segments
 from visinger_tpu_torch.utils.audio.spk_embed import SPK_EMBED_DIM
+from visinger_tpu_torch.utils.meters import span
 
 SUBSYSTEMS = {"text_encoder": "text_encoder", "pitch": "pitch_predictor",
               "phoneme": "phoneme_predictor", "frame_prior": "frame_prior",
@@ -156,23 +157,24 @@ class VISinger(nn.Module):
         [B, T, H], tgt_nonpadding [B, T, 1], f0_pred [B, T, 2]}; ``f0``/``uv``
         [B, T] teacher-force the pitch condition (training)."""
         cfg = self.cfg
-        tgt = (mel2ph > 0).float()[..., None]
-        prior_inp = self.text_encoder(
-            text_tokens, pitch_tokens, dur_tokens, mel2ph,
-            generator=generator) * tgt
-        if cfg.use_pos_embed:
-            prior_inp = prior_inp + positional_embedding(tgt[..., 0],
-                                                         cfg.hidden_size)
-        spk_emb = self.speaker_embedding(spk_id, spk_embed)
-        ret = {"tgt_nonpadding": tgt}
-        cond = None
-        if cfg.use_pitch_embed:
-            cond, ret["f0_pred"] = self.forward_pitch(
-                prior_inp, spk_emb, tgt, f0, uv, generator)
-        mu_p, logs_p = self.frame_prior(
-            _ct(prior_inp), _ct(tgt), g=None if cond is None else _ct(cond),
-            generator=generator)
-        ret["mu_p"], ret["logs_p"] = _ct(mu_p), _ct(logs_p)
+        with span("model.prior"):
+            tgt = (mel2ph > 0).float()[..., None]
+            prior_inp = self.text_encoder(
+                text_tokens, pitch_tokens, dur_tokens, mel2ph,
+                generator=generator) * tgt
+            if cfg.use_pos_embed:
+                prior_inp = prior_inp + positional_embedding(
+                    tgt[..., 0], cfg.hidden_size)
+            spk_emb = self.speaker_embedding(spk_id, spk_embed)
+            ret = {"tgt_nonpadding": tgt}
+            cond = None
+            if cfg.use_pitch_embed:
+                cond, ret["f0_pred"] = self.forward_pitch(
+                    prior_inp, spk_emb, tgt, f0, uv, generator)
+            mu_p, logs_p = self.frame_prior(
+                _ct(prior_inp), _ct(tgt),
+                g=None if cond is None else _ct(cond), generator=generator)
+            ret["mu_p"], ret["logs_p"] = _ct(mu_p), _ct(logs_p)
         return ret
 
     def infer_prior(self, text_tokens, pitch_tokens, dur_tokens, mel2ph,
@@ -190,8 +192,10 @@ class VISinger(nn.Module):
         g = self.speaker_embedding(spk_id, spk_embed)
         g = None if g is None else _ct(g)
         mask = _ct(tgt_nonpadding)
-        z_q = self.flow(_ct(z_p), mask, g=g, reverse=True).float() * mask
-        return self.decoder(z_q * mask, g=g)
+        with span("model.flow"):
+            z_q = self.flow(_ct(z_p), mask, g=g, reverse=True).float() * mask
+        with span("model.decoder"):
+            return self.decoder(z_q * mask, g=g)
 
     def forward(self, text_tokens, pitch_tokens, dur_tokens, mel2ph,
                 spk_id=None, infer: bool = True, eps=None, generator=None,
@@ -222,13 +226,16 @@ class VISinger(nn.Module):
         mask = _ct(tgt)
         g = self.speaker_embedding(spk_id, spk_embed)
         g = None if g is None else _ct(g)
-        z_q, mu_q, logs_q = self.posterior_encoder(
-            _ct(spec), mask, g=g, eps=None if eps_q is None else _ct(eps_q),
-            generator=generator)
+        with span("model.posterior"):
+            z_q, mu_q, logs_q = self.posterior_encoder(
+                _ct(spec), mask, g=g,
+                eps=None if eps_q is None else _ct(eps_q),
+                generator=generator)
         if cfg.use_phoneme_pred:
             ret["ph_pred"] = _ct(self.phoneme_predictor(
                 z_q, mask, generator=generator) * mask)
-        z_p = self.flow(z_q, mask, g=g).float() * mask
+        with span("model.flow"):
+            z_p = self.flow(z_q, mask, g=g).float() * mask
         ret["z_p"], ret["z_q"] = _ct(z_p), _ct(z_q)
         ret["mu_q"], ret["logs_q"] = _ct(mu_q), _ct(logs_q)
         mu_p, logs_p = _ct(ret["mu_p"]), _ct(ret["logs_p"])
@@ -247,5 +254,6 @@ class VISinger(nn.Module):
         z_slice, ret["ids_slice"] = rand_slice_segments(
             ret["z_q"], cfg.segment_size,
             None if cfg.slice_ref_padded else lengths, generator, ids_slice)
-        ret["wav_out"] = self.decoder(_ct(z_slice), g=g)
+        with span("model.decoder"):
+            ret["wav_out"] = self.decoder(_ct(z_slice), g=g)
         return ret

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from visinger_tpu_torch.modules.common import LRELU_SLOPE, Conv1d, Conv2dP
+from visinger_tpu_torch.utils.meters import span
 
 
 class DiscriminatorP(nn.Module):
@@ -120,16 +121,17 @@ class MultiPeriodDiscriminator(nn.Module):
         sub-discriminator."""
         y_d_rs, y_d_gs, fmap_rs, fmap_gs = [], [], [], []
         b = y.shape[0]
-        for name in self.names:
-            d = getattr(self, name)
-            if self.pair_batch:
-                s, f = d(torch.cat([y, y_hat], 0))
-                sr, sg = s[:b], s[b:]
-                fr, fg = [a[:b] for a in f], [a[b:] for a in f]
-            else:
-                (sr, fr), (sg, fg) = d(y), d(y_hat)
-            y_d_rs.append(sr)
-            y_d_gs.append(sg)
-            fmap_rs.append(fr)
-            fmap_gs.append(fg)
+        with span("model.disc"):
+            for name in self.names:
+                d = getattr(self, name)
+                if self.pair_batch:
+                    s, f = d(torch.cat([y, y_hat], 0))
+                    sr, sg = s[:b], s[b:]
+                    fr, fg = [a[:b] for a in f], [a[b:] for a in f]
+                else:
+                    (sr, fr), (sg, fg) = d(y), d(y_hat)
+                y_d_rs.append(sr)
+                y_d_gs.append(sg)
+                fmap_rs.append(fr)
+                fmap_gs.append(fg)
         return y_d_rs, y_d_gs, fmap_rs, fmap_gs

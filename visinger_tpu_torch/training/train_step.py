@@ -67,6 +67,7 @@ from visinger_tpu_torch.parallel import mesh
 from visinger_tpu_torch.training import losses as L
 from visinger_tpu_torch.training.train_state import (TrainState, global_norm,
                                                      make_optimizers)
+from visinger_tpu_torch.utils.meters import span
 
 
 def device_batch(batch: dict, device: torch.device) -> dict:
@@ -299,22 +300,29 @@ class TrainStep:
 
     def __call__(self, state: TrainState, batch: dict, eps_q=None,
                  ids_slice=None) -> tuple[TrainState, dict]:
+        with span("train.step", state.step):
+            return self._step(state, batch, eps_q, ids_slice)
+
+    def _step(self, state, batch, eps_q, ids_slice):
         cfg = self.cfg
         accum = max(cfg.accumulate_grad_batches, 1)
         opt_step = state.step // accum
-        b, eps_q, ids_slice, counts, tgt = self._prepare(state, batch, eps_q,
-                                                         ids_slice)
-        gen = state.generator if counts is None else rank_generator(
-            cfg.seed, state.step, mesh.rank(), self.device)
-        terms, aux = remat(
-            cfg.remat_policy,
-            lambda: self._forward(state, b, eps_q, ids_slice, gen, counts,
-                                  tgt), gen)
-        total, losses = self._with_kl(state, terms, counts)
-        params_g = list(self.model.parameters())
-        grads_g = mesh.all_reduce_grads(_grads(total, params_g))
-        gnorm = global_norm(grads_g)
-        self.opt_g.step(params_g, grads_g, state.opt_state_g, accum)
+        with span("train.g.forward"):
+            b, eps_q, ids_slice, counts, tgt = self._prepare(
+                state, batch, eps_q, ids_slice)
+            gen = state.generator if counts is None else rank_generator(
+                cfg.seed, state.step, mesh.rank(), self.device)
+            terms, aux = remat(
+                cfg.remat_policy,
+                lambda: self._forward(state, b, eps_q, ids_slice, gen,
+                                      counts, tgt), gen)
+            total, losses = self._with_kl(state, terms, counts)
+        with span("train.g.backward"):
+            params_g = list(self.model.parameters())
+            grads_g = mesh.all_reduce_grads(_grads(total, params_g))
+        with span("train.g.optimizer"):
+            gnorm = global_norm(grads_g)
+            self.opt_g.step(params_g, grads_g, state.opt_state_g, accum)
 
         loss_d = torch.zeros((), device=self.device)
         if (cfg.lambda_mel_adv > 0 and opt_step >= cfg.disc_start_steps
@@ -327,16 +335,19 @@ class TrainStep:
                     real_scores, fake_scores, aux["item_weights"],
                     None if counts is None else counts["items"])
 
-            loss_d = remat(cfg.remat_policy, disc_loss, gen)
-            params_d = list(self.disc.parameters())
-            self.opt_d.step(params_d,
-                            mesh.all_reduce_grads(_grads(loss_d, params_d)),
-                            state.opt_state_d, accum)
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["total_g"] = total.detach()
-        metrics["disc"] = loss_d.detach()
-        metrics = _global_metrics(metrics)
-        metrics["gnorm_g"] = gnorm  # of the summed gradients: global
+            with span("train.d.forward"):
+                loss_d = remat(cfg.remat_policy, disc_loss, gen)
+            with span("train.d.backward"):
+                params_d = list(self.disc.parameters())
+                grads_d = mesh.all_reduce_grads(_grads(loss_d, params_d))
+            with span("train.d.optimizer"):
+                self.opt_d.step(params_d, grads_d, state.opt_state_d, accum)
+        with span("train.metrics"):
+            metrics = {k: v.detach() for k, v in losses.items()}
+            metrics["total_g"] = total.detach()
+            metrics["disc"] = loss_d.detach()
+            metrics = _global_metrics(metrics)
+            metrics["gnorm_g"] = gnorm  # of the summed gradients: global
         state.step += 1
         return state, metrics
 

@@ -1,12 +1,13 @@
-"""Running-average meters and device-synchronised timers (an own copy of
-the JAX package's ``utils/meters.py``)."""
+"""Running-average meters (an own copy of the JAX package's
+``utils/meters.py``) and ``span``, the named ranges that frame the layers of
+a training step and of a synthesis call in a ``torch.profiler`` trace."""
 
 from __future__ import annotations
 
-import time
-from collections import defaultdict
+import contextlib
 
-import torch
+import torch.autograd.profiler as _profiler
+from torch._C._profiler import _RecordFunctionFast
 
 
 class AvgMeter:
@@ -22,29 +23,22 @@ class AvgMeter:
         self.avg = self.sum / self.cnt
 
 
-class Timer:
-    """Accumulating named timer; ``sync=True`` waits for the CUDA device on
-    both edges (when there is one), so the span is the device's wall time
-    and not the time to enqueue its work."""
+_OFF = contextlib.nullcontext()
 
-    timer_map: dict[str, float] = defaultdict(float)
 
-    def __init__(self, name: str, sync: bool = False, print_time: bool = False):
-        self.name = name
-        self.sync = sync
-        self.print_time = print_time
+def span(name: str, unit=None):
+    """A context manager that records ``name`` as a range of the host thread
+    in the running ``torch.profiler`` trace, on the clock of the trace's
+    kernels and runtime calls; ``unit`` (the step, or the request group)
+    is kept as its ``unit`` argument when the profiler records shapes.
 
-    def _barrier(self):
-        if self.sync and torch.cuda.is_available():
-            torch.cuda.synchronize()
-
-    def __enter__(self):
-        self._barrier()
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self._barrier()
-        Timer.timer_map[self.name] += time.perf_counter() - self.t0
-        if self.print_time:
-            print(self.name, round(Timer.timer_map[self.name], 4))
+    With no profiler running it is one shared no-op context: no allocation,
+    no profiler call.  The range is an ordinary host operation and not a
+    ``record_function`` user annotation, which the profiler also draws on
+    the device's track as a CUDA event (read by a trace reader as device
+    work); it adds no synchronisation and no device work."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    if unit is None:
+        return _RecordFunctionFast(name)
+    return _RecordFunctionFast(name, (), {"unit": unit})
