@@ -232,7 +232,15 @@ def _as_tuples(v):
 # ``exp_name`` is run.py's --exp_name default; JAX
 # reads a missing ``binary_data_dirs`` as None, the port an empty tuple:
 # both mean one corpus)
-_JAX_CODE_DEFAULTS = {"slice_ref_padded": False, "disc_s_base": 16,
+# The keys that select and shape the port's second architecture (VITS,
+# ``config.vits_ljs``) have no JAX counterpart: the JAX package runs
+# VISinger, which their defaults keep.
+_PORT_ONLY_DEFAULTS = {"model": "visinger", "n_vocab": 0,
+                       "sdp_filter_channels": 192, "sdp_kernel_size": 3,
+                       "sdp_p_dropout": 0.5, "sdp_n_flows": 4,
+                       "sdp_num_bins": 10, "sdp_tail_bound": 5.0}
+_JAX_CODE_DEFAULTS = {**_PORT_ONLY_DEFAULTS,
+                      "slice_ref_padded": False, "disc_s_base": 16,
                       "disc_p_channels": (32, 128, 512, 1024),
                       "remat_policy": "none", "sp_infer": False,
                       "griffin_lim_iters": 30, "exp_name": "",

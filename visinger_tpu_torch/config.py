@@ -1,6 +1,6 @@
-"""The ``visinger_csd``, ``tpu_run``, ``soak_r5`` and ``parity_run``
-recipes as Python dataclasses (YAML experiment files are read into a
-``Config`` by ``config_loader.py``).
+"""The ``visinger_csd``, ``tpu_run``, ``soak_r5``, ``parity_run`` and
+``vits_ljs`` recipes as Python dataclasses (YAML experiment files are read
+into a ``Config`` by ``config_loader.py``).
 
 Holds the values the synthesis path, the MIDI front end, serving, the
 training step, the trainer, the data pipeline (synthetic corpus,
@@ -108,6 +108,17 @@ UNREAD_KEYS = frozenset({
 
 @dataclass(frozen=True)
 class Config:
+    # the architecture: "visinger" (score -> frame prior by mel2ph) or
+    # "vits" (text -> token prior aligned by monotonic alignment search,
+    # stochastic duration predictor; ``models/vits.py``)
+    model: str = "visinger"
+    n_vocab: int = 0             # VITS: text symbols (0: the data's count)
+    sdp_filter_channels: int = 192
+    sdp_kernel_size: int = 3
+    sdp_p_dropout: float = 0.5
+    sdp_n_flows: int = 4
+    sdp_num_bins: int = 10
+    sdp_tail_bound: float = 5.0
     hidden_size: int = 192
     ffn_filter_channels: int = 768
     ffn_kernel_size: int = 9
@@ -159,8 +170,8 @@ class Config:
     lambda_fm: float = 2.0
     lambda_uv: float = 1.0
     lambda_f0: float = 10.0
-    kl_start_steps: int = 1
-    kl_min: float = 0.0
+    kl_start_steps: int = 1      # 0: no warm-up
+    kl_min: float | None = 0.0   # None: no floor
     # training: discriminators
     disc_periods: tuple = (2, 3, 5, 7, 11)
     disc_s_base: int = 16
@@ -177,7 +188,7 @@ class Config:
     weight_decay: float = 0.001
     disc_weight_decay: float = 0.0
     scheduler_gamma: float = 0.999875
-    clip_grad_norm: float = 1.0
+    clip_grad_norm: float = 1.0  # 0: no clipping (the norm is still taken)
     steps_per_epoch: int = 0     # 0: the trainer's epoch plan (else 280)
     accumulate_grad_batches: int = 1
     remat_policy: str = "none"
@@ -334,6 +345,7 @@ def parse_overrides(spec: str) -> dict:
 ISLANDS = ("text_encoder", "pitch", "phoneme", "frame_prior", "posterior",
            "flow", "decoder", "disc")
 COMPUTE_DTYPES = {"float32", "bfloat16"}
+MODELS = ("visinger", "vits")
 REMAT_POLICIES = ("none", "full", "dots")
 
 
@@ -354,6 +366,10 @@ def check_supported(cfg: Config, device=None) -> None:
             "sequence-parallel decoding shards one full-length program "
             "over the mesh while streaming chunks a single device's "
             "decode; pick one (configs: sp_infer / stream_infer)")
+    if cfg.model not in MODELS:
+        raise ValueError(f"model {cfg.model!r}: choose from {MODELS}")
+    if cfg.model == "vits" and cfg.compute_dtype != "float32":
+        raise ValueError("the VITS model computes in float32 only")
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r} is not one "
                          f"of {sorted(COMPUTE_DTYPES)}")
@@ -453,8 +469,39 @@ def parity_run() -> Config:
     )
 
 
+def vits_ljs() -> Config:
+    """VITS on LJSpeech: jaywalnut310/vits ``configs/ljs_base.json`` and
+    ``models.py::SynthesizerTrn`` with ``use_sdp=True``.  The widths are the
+    published ones; so are the losses (c_mel 45, c_kl 1, no KL warm-up or
+    floor, feature matching x2), AdamW (0.8, 0.99), eps 1e-9 and torch's
+    default weight decay 0.01 on both optimizers, and no gradient clipping
+    (upstream ``clip_grad_value_(..., None)`` only measures the norm).
+    ``max_sentences`` is the per-GPU ``batch_size`` 64.  Departures: the
+    step runs in the port's order (the generator against the discriminator
+    from before the step's update, then the discriminator), and in
+    float32, where upstream trains in fp16 AMP."""
+    return Config(
+        model="vits", n_vocab=178,
+        hidden_size=192, ffn_filter_channels=768, ffn_kernel_size=3,
+        num_heads=2, attn_window_size=4, p_dropout=0.1, enc_layers=6,
+        pitch_predictor_layers=0, frame_prior_layers=0,
+        phoneme_predictor_layers=0, use_phoneme_pred=False,
+        use_pitch_embed=False, use_pos_embed=False,
+        posterior_wn_layers=16, posterior_wn_kernel=5, flow_n_flows=4,
+        flow_wn_layers=4, flow_wn_kernel=5,
+        upsample_rates=(8, 8, 2, 2), upsample_kernel_sizes=(16, 16, 4, 4),
+        initial_upsample_channels=512, gin_channels=0, use_spk_id=False,
+        hop_size=256, sample_rate=22050, segment_size=32, fft_size=1024,
+        win_size=1024, num_mel_bins=80, num_linear_bins=513, fmin=0,
+        fmax=None, mel_losses="l1:45.0", lambda_kl=1.0, lambda_fm=2.0,
+        kl_start_steps=0, kl_min=None, weight_decay=0.01,
+        disc_weight_decay=0.01, clip_grad_norm=0.0, max_sentences=64,
+        work_dir="checkpoints/vits_ljs")
+
+
 RECIPES = {"visinger_csd": visinger_csd, "tpu_run": tpu_run,
-           "soak_r5": soak_r5, "parity_run": parity_run}
+           "soak_r5": soak_r5, "parity_run": parity_run,
+           "vits_ljs": vits_ljs}
 
 
 def tiny_config() -> Config:
@@ -479,3 +526,15 @@ def tiny_config() -> Config:
         disc_s_base=4,
         disc_p_channels=(8, 16, 32, 32),
     )
+
+
+def tiny_vits() -> Config:
+    """``vits_ljs`` at unit-test size (every kind of layer kept)."""
+    return vits_ljs().replace(
+        n_vocab=20, hidden_size=16, ffn_filter_channels=32, enc_layers=1,
+        posterior_wn_layers=2, flow_n_flows=2, flow_wn_layers=1,
+        initial_upsample_channels=32, upsample_rates=(4, 4),
+        upsample_kernel_sizes=(8, 8), hop_size=16, fft_size=64, win_size=64,
+        num_linear_bins=33, num_mel_bins=10, segment_size=8,
+        sdp_filter_channels=16, disc_periods=(2, 3), disc_s_base=4,
+        disc_p_channels=(8, 16, 32, 32), max_sentences=4)

@@ -33,6 +33,7 @@ from visinger_tpu_torch.modules.encoders import (FramePriorNetwork,
 from visinger_tpu_torch.modules.flow import ResidualCouplingBlock
 from visinger_tpu_torch.modules.hifigan import HiFiGANGenerator
 from visinger_tpu_torch.ops.masking import rand_slice_segments
+from visinger_tpu_torch.training.losses import kl_divergence
 from visinger_tpu_torch.utils.audio.spk_embed import SPK_EMBED_DIM
 from visinger_tpu_torch.utils.meters import span
 
@@ -242,15 +243,8 @@ class VISinger(nn.Module):
         if cfg.logs_clamp > 0:
             logs_p = logs_p.clamp(-cfg.logs_clamp, cfg.logs_clamp)
             logs_q = logs_q.clamp(-cfg.logs_clamp, cfg.logs_clamp)
-        kl = (logs_p - logs_q - 0.5) \
-            + 0.5 * (z_p - mu_p).square() * torch.exp(-2.0 * logs_p)
-        # the numerator sums channels and frames, the denominator counts
-        # valid frames
-        kl_mask = mask
-        if item_weights is not None:
-            kl_mask = kl_mask * item_weights.float()[:, None, None]
-        ret["kl"] = (kl * kl_mask).sum() / (
-            kl_mask.sum() if kl_count is None else kl_count).clamp(min=1.0)
+        ret["kl"] = kl_divergence(z_p, mu_p, logs_p, logs_q, mask,
+                                  item_weights, kl_count)
         z_slice, ret["ids_slice"] = rand_slice_segments(
             ret["z_q"], cfg.segment_size,
             None if cfg.slice_ref_padded else lengths, generator, ids_slice)

@@ -78,14 +78,15 @@ class RelativeMultiHeadAttention(nn.Module):
 
 
 class ConvFFN(nn.Module):
-    """Conv k / ReLU / conv 1x1 feed-forward."""
+    """Conv k / ReLU / conv ``out_kernel`` feed-forward (1x1 in VISinger,
+    k in VITS)."""
 
     def __init__(self, channels: int, filter_channels: int, kernel_size: int,
-                 p_dropout: float = 0.0):
+                 p_dropout: float = 0.0, out_kernel: int = 1):
         super().__init__()
         self.p_dropout = p_dropout
         self.conv_1 = Conv1d(channels, filter_channels, kernel_size)
-        self.conv_2 = Conv1d(filter_channels, channels, 1)
+        self.conv_2 = Conv1d(filter_channels, channels, out_kernel)
 
     def forward(self, x, x_mask, generator=None):
         x = torch.relu(self.conv_1(x * x_mask))
@@ -96,14 +97,16 @@ class ConvFFN(nn.Module):
 class RelativeEncoder(nn.Module):
     """Post-LN stack of (relative MHA, conv FFN); ``pre_net(g)`` is added to
     x before every layer when g is given.  x and its mask are cast to the
-    compute dtype on entry."""
+    compute dtype on entry.  VITS's encoder is this stack with
+    ``ffn_out_kernel`` = ``kernel_size`` and LayerNorm eps 1e-5."""
 
     dtype = torch.float32
 
     def __init__(self, hidden_channels: int, filter_channels: int,
                  n_heads: int, n_layers: int, kernel_size: int = 1,
                  window_size: int = 4, gin_channels: int = 0,
-                 p_dropout: float = 0.0):
+                 p_dropout: float = 0.0, ffn_out_kernel: int = 1,
+                 ln_eps: float = 1e-4):
         super().__init__()
         self.n_layers = n_layers
         self.p_dropout = p_dropout
@@ -112,10 +115,13 @@ class RelativeEncoder(nn.Module):
         for i in range(n_layers):
             self.add_module(f"attn_{i}", RelativeMultiHeadAttention(
                 hidden_channels, n_heads, window_size, p_dropout))
-            self.add_module(f"norm1_{i}", ChannelLayerNorm(hidden_channels))
+            self.add_module(f"norm1_{i}", ChannelLayerNorm(hidden_channels,
+                                                           ln_eps))
             self.add_module(f"ffn_{i}", ConvFFN(
-                hidden_channels, filter_channels, kernel_size, p_dropout))
-            self.add_module(f"norm2_{i}", ChannelLayerNorm(hidden_channels))
+                hidden_channels, filter_channels, kernel_size, p_dropout,
+                ffn_out_kernel))
+            self.add_module(f"norm2_{i}", ChannelLayerNorm(hidden_channels,
+                                                           ln_eps))
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
                 g: torch.Tensor | None = None,

@@ -1,6 +1,6 @@
 """The STFT's numpy constants that need no torch: the periodic Hann
-window and the HTK mel filterbank (as the JAX package's ``ops/stft.py``
-builds them).  Kept apart from ``ops/stft.py`` so that host-only code, such
+window, the HTK mel filterbank (as the JAX package's ``ops/stft.py``
+builds them) and the Slaney one (VITS's ``librosa.filters.mel``).  Kept apart from ``ops/stft.py`` so that host-only code, such
 as the binarizer's worker processes, imports numpy alone."""
 
 from __future__ import annotations
@@ -35,3 +35,37 @@ def mel_filterbank(n_freqs: int, f_min: float, f_max: float, n_mels: int,
     down = -slopes[:, :-2] / f_diff[:-1]
     up = slopes[:, 2:] / f_diff[1:]
     return np.maximum(0.0, np.minimum(down, up)).astype(np.float32)
+
+
+def _hz_to_mel_slaney(f):
+    f = np.asarray(f, dtype=np.float64)
+    lin = f / (200.0 / 3)
+    return np.where(f >= 1000.0,
+                    15.0 + np.log(np.maximum(f, 1e-10) / 1000.0)
+                    / (np.log(6.4) / 27.0), lin)
+
+
+def _mel_to_hz_slaney(m):
+    m = np.asarray(m, dtype=np.float64)
+    return np.where(m >= 15.0,
+                    1000.0 * np.exp((np.log(6.4) / 27.0) * (m - 15.0)),
+                    m * (200.0 / 3))
+
+
+def mel_filterbank_slaney(n_fft: int, f_min: float, f_max: float | None,
+                          n_mels: int, sample_rate: int) -> np.ndarray:
+    """``librosa.filters.mel(sr, n_fft, n_mels, fmin, fmax)`` (Slaney
+    scale, Slaney area norm; ``f_max`` None is half the rate), transposed
+    -> [n_fft // 2 + 1, n_mels]."""
+    f_max = sample_rate / 2.0 if f_max is None else f_max
+    freqs = np.fft.rfftfreq(n_fft, 1.0 / sample_rate)
+    mel_f = _mel_to_hz_slaney(np.linspace(_hz_to_mel_slaney(f_min),
+                                          _hz_to_mel_slaney(f_max),
+                                          n_mels + 2))
+    fdiff = np.diff(mel_f)
+    ramps = mel_f[:, None] - freqs[None, :]
+    lower = -ramps[:-2] / fdiff[:-1, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    weights = np.maximum(0.0, np.minimum(lower, upper))
+    weights *= (2.0 / (mel_f[2:] - mel_f[:-2]))[:, None]
+    return weights.T.astype(np.float32)

@@ -96,15 +96,34 @@ def mel_losses_total(spec: str, mel_out, mel_tgt, w=None,
     return total
 
 
+def kl_divergence(z_p, m_p, logs_p, logs_q, mask, item_weights=None,
+                  kl_count=None) -> torch.Tensor:
+    """The KL term of the posterior against the prior, [B, C, T] inputs:
+    Σ (logs_p - logs_q - ½ + ½ (z_p - m_p)² e^{-2 logs_p}) over the
+    channels and valid frames (of items with weight) / the valid frames
+    (``kl_count``, the global count, when given)."""
+    kl = (logs_p - logs_q - 0.5) \
+        + 0.5 * (z_p - m_p).square() * torch.exp(-2.0 * logs_p)
+    # the numerator sums channels and frames, the denominator counts
+    # valid frames
+    if item_weights is not None:
+        mask = mask * item_weights.float()[:, None, None]
+    return (kl * mask).sum() / (
+        mask.sum() if kl_count is None else kl_count).clamp(min=1.0)
+
+
 def kl_schedule(kl: torch.Tensor, step: int, kl_min: float,
                 kl_start_steps: int, lambda_kl: float, kl_global=None,
                 world: int = 1) -> torch.Tensor:
     """max(kl, kl_min) · λ, warmed up linearly over ``kl_start_steps``
-    optimizer steps (step 0 gives 0).  Under data parallelism ``kl`` is the
-    rank's share of the global KL ``kl_global`` (its sum over the ``world``
-    ranks): the global value is held to ``kl_min`` (each rank then gives
-    kl_min / world and no gradient)."""
-    warm = min(step / max(kl_start_steps, 1), 1.0)
+    optimizer steps (step 0 gives 0; ``kl_start_steps`` 0: no warm-up, and
+    ``kl_min`` None: no floor, as VITS trains).  Under data parallelism
+    ``kl`` is the rank's share of the global KL ``kl_global`` (its sum over
+    the ``world`` ranks): the global value is held to ``kl_min`` (each rank
+    then gives kl_min / world and no gradient)."""
+    warm = min(step / kl_start_steps, 1.0) if kl_start_steps > 0 else 1.0
+    if kl_min is None:
+        return warm * kl * lambda_kl
     if kl_global is not None:
         kl = torch.where(kl_global >= kl_min, kl,
                          kl.new_tensor(kl_min / world))

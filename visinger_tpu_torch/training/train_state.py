@@ -110,7 +110,9 @@ class ClippedAdamW:
 
 def make_optimizers(cfg: Config, steps_per_epoch: int | None = None
                     ) -> tuple[ClippedAdamW, ClippedAdamW]:
-    """(generator optimizer, discriminator optimizer).  The learning rate
+    """(generator optimizer, discriminator optimizer), clipping at
+    ``clip_grad_norm`` (at 0 not at all: the clip factor is then exactly 1,
+    and the norm is still returned).  The learning rate
     decays once per epoch: ``cfg.steps_per_epoch`` when it is above 0, else
     ``steps_per_epoch`` (the trainer's epoch plan, in batches), else 280;
     divided by ``accumulate_grad_batches``, since the schedule counts
@@ -120,7 +122,8 @@ def make_optimizers(cfg: Config, steps_per_epoch: int | None = None
     common = dict(lr=cfg.lr, decay_steps=spe,
                   gamma=cfg.scheduler_gamma, b1=cfg.optimizer_adam_beta1,
                   b2=cfg.optimizer_adam_beta2, eps=cfg.eps,
-                  max_norm=cfg.clip_grad_norm)
+                  max_norm=cfg.clip_grad_norm if cfg.clip_grad_norm > 0
+                  else float("inf"))
     return (ClippedAdamW(weight_decay=cfg.weight_decay, **common),
             ClippedAdamW(weight_decay=cfg.disc_weight_decay, **common))
 

@@ -1,5 +1,8 @@
-"""The VISinger GAN train step (counterpart of the JAX package's
-``training/train_step.py``), in the JAX step's update order:
+"""The GAN train step of VISinger (counterpart of the JAX package's
+``training/train_step.py``) and of VITS (``cfg.model`` "vits": the batch's
+text tokens, their lengths, the waveform and its frame count go to
+``models/vits.py``, whose duration loss ``dur`` joins the sum; no pitch,
+uv or CTC term; one process), in the JAX step's update order:
 
   1. the generator loss against the discriminator from before this step's
      update (its parameters take no gradient), the generator's AdamW update
@@ -62,7 +65,8 @@ from visinger_tpu_torch.config import Config, check_supported
 from visinger_tpu_torch.models.factory import resolve_device
 from visinger_tpu_torch.ops.clipped_adamw import global_norm
 from visinger_tpu_torch.ops.masking import slice_segments, slice_starts
-from visinger_tpu_torch.ops.stft import (STFTParams, log_mel_slices,
+from visinger_tpu_torch.ops.stft import (STFTParams, linear_spectrogram,
+                                         log_mel_slices,
                                          log_mel_spectrogram,
                                          power_spectrogram)
 from visinger_tpu_torch.parallel import mesh
@@ -190,6 +194,9 @@ class TrainStep:
         self.disc = disc.to(self.device)
         self.stft = STFTParams.from_config(cfg, self.device)
         self.opt_g, self.opt_d = make_optimizers(cfg, steps_per_epoch)
+        if cfg.model == "vits" and mesh.world_size() > 1:
+            raise NotImplementedError("data-parallel VITS training: its "
+                                      "duration loss has no global count")
 
     def _batch(self, batch: dict) -> dict:
         return device_batch(batch, self.device)
@@ -272,21 +279,32 @@ class TrainStep:
         spec = b.get("spec")
         if spec is None:
             with torch.no_grad():
-                spec = power_spectrogram(b["wavs"], self.stft)
+                spec = linear_spectrogram(b["wavs"], self.stft)
         w = b.get("item_weights")
-        out = self.model(
-            b["text_tokens"], b["note_pitch"], b["note_dur"], b["mel2ph"],
-            spk_id=b.get("spk_ids"), infer=False, generator=generator,
-            f0=b.get("f0"), uv=b.get("uv"), spec=spec,
-            lengths=b.get("mel_lengths"), item_weights=w,
-            eps_q=None if eps_q is None else torch.as_tensor(
-                eps_q, device=self.device).float(),
-            ids_slice=None if ids_slice is None else torch.as_tensor(
-                ids_slice, device=self.device),
-            spk_embed=b.get("spk_embed"), kl_count=c.get("frames"))
+        eps_q = None if eps_q is None else torch.as_tensor(
+            eps_q, device=self.device).float()
+        ids_slice = None if ids_slice is None else torch.as_tensor(
+            ids_slice, device=self.device)
+        if cfg.model == "vits":
+            # VITS's batch: text tokens and their lengths, the waveform
+            # and its frame count
+            out = self.model(
+                b["text_tokens"], b["text_lengths"], spec, b["mel_lengths"],
+                generator=generator, eps_q=eps_q, ids_slice=ids_slice,
+                item_weights=w, kl_count=c.get("frames"))
+        else:
+            out = self.model(
+                b["text_tokens"], b["note_pitch"], b["note_dur"],
+                b["mel2ph"], spk_id=b.get("spk_ids"), infer=False,
+                generator=generator, f0=b.get("f0"), uv=b.get("uv"),
+                spec=spec, lengths=b.get("mel_lengths"), item_weights=w,
+                eps_q=eps_q, ids_slice=ids_slice,
+                spk_embed=b.get("spk_embed"), kl_count=c.get("frames"))
         terms = {"kl_v": out["kl"],
                  **recon_losses(cfg, self.stft, b, out, w, counts,
                                 tgt_slice)}
+        if "dur" in out:
+            terms["dur"] = out["dur"]
         seg, hop = cfg.segment_size, cfg.hop_size
         real = slice_segments(b["wavs"], out["ids_slice"] * hop, seg * hop)
         adv_gate = float(step >= cfg.disc_start_steps)
@@ -414,6 +432,9 @@ class EvalStep:
         check_supported(cfg, self.device)
         self.model = model.to(self.device)
         self.stft = STFTParams.from_config(cfg, self.device)
+        if cfg.model == "vits":
+            raise NotImplementedError("the validation step of VITS waits "
+                                      "for its text-audio data pipeline")
 
     def draws(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """(eps_q [B, T, H], ids_slice [B]) for a device batch: the normal

@@ -26,11 +26,12 @@ class AvgMeter:
 _OFF = contextlib.nullcontext()
 
 
-def span(name: str, unit=None):
+def span(name: str, unit=None, **args):
     """A context manager that records ``name`` as a range of the host thread
     in the running ``torch.profiler`` trace, on the clock of the trace's
     kernels and runtime calls; ``unit`` (the step, or the request group)
-    is kept as its ``unit`` argument when the profiler records shapes.
+    and any keyword ``args`` (counts of the span's work) are kept as its
+    arguments when the profiler records shapes.
 
     With no profiler running it is one shared no-op context: no allocation,
     no profiler call.  The range is an ordinary host operation and not a
@@ -39,6 +40,8 @@ def span(name: str, unit=None):
     work); it adds no synchronisation and no device work."""
     if not _profiler._is_profiler_enabled:
         return _OFF
-    if unit is None:
+    if unit is not None:
+        args = {"unit": unit, **args}
+    if not args:
         return _RecordFunctionFast(name)
-    return _RecordFunctionFast(name, (), {"unit": unit})
+    return _RecordFunctionFast(name, (), args)
